@@ -5,9 +5,10 @@ computes ``P = (A @ B) * S`` only where the sparse mask ``S`` is nonzero,
 by
 
 1. reordering the mask's rows by pattern similarity (threshold ``alpha``),
-2. splitting each row panel into dense natural column-block tiles (density
-   threshold ``delta``), hot-column packed tiles, gathered tiles and a
-   per-nonzero residual,
+2. splitting each row panel into dense tiles (density threshold
+   ``delta``: natural column blocks, or per-panel reordered column groups
+   with ``col_mode="reorder"``), hot-column packed tiles, gathered tiles
+   and a per-nonzero residual,
 3. running the tile tiers through hand-written CUDA kernels for ``sm_90a``
    (``ops/dense_kernels.py``, ``csrc/``) and the rest as torch ops.
 

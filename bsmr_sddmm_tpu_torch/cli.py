@@ -2,7 +2,8 @@
 package's ``bsmr-sddmm`` (CUDA original ./BSMR-sddmm, src/main.cu:6-42,
 include/Options.hpp:49-76): `-f` matrix file, `-k` K, `-a` alpha, `-d`
 delta, `-t` test mode, `-l` log dir, plus --backend, --panel-height,
---validate and --device. Flags whose feature is not ported yet exit with
+--col-mode, --validate, --evaluate, --tier-times, --reorder-cache and
+--device. The autotune flags, whose feature is not ported yet, exit with
 status 2 and say so."""
 
 from __future__ import annotations
@@ -53,12 +54,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iterations", type=int, default=10)
     p.add_argument("--fast-bench", action="store_true",
                    help="skip the separately-timed CSR-order emission")
-    # flags of the JAX package whose features are not ported yet
     p.add_argument("--reorder-cache", action="store_true",
-                   help="not yet ported")
-    p.add_argument("--evaluate", action="store_true", help="not yet ported")
+                   help="cache row reorderings on disk (BSMR_CACHE_DIR; "
+                        "the same entries as the JAX package's)")
+    p.add_argument("--evaluate", action="store_true",
+                   help="append reordered-vs-original tiling statistics "
+                        "to the log (original evaluationReordering)")
     p.add_argument("--tier-times", action="store_true",
-                   help="not yet ported")
+                   help="measure and log the per-tier time split "
+                        "(dense/packed/gathered/residual ms + overlap "
+                        "efficiency)")
+    # flags of the JAX package whose features are not ported yet
     p.add_argument("--auto-delta", action="store_true",
                    help="not yet ported")
     p.add_argument("--auto-alpha", action="store_true",
@@ -69,13 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> list:
-    flags = [("--reorder-cache", args.reorder_cache),
-             ("--evaluate", args.evaluate),
-             ("--tier-times", args.tier_times),
-             ("--auto-delta", args.auto_delta),
+    flags = [("--auto-delta", args.auto_delta),
              ("--auto-alpha", args.auto_alpha),
-             ("--refine-top", args.refine_top),
-             ("--col-mode reorder", args.col_mode == "reorder")]
+             ("--refine-top", args.refine_top)]
     return [name for name, on in flags if on]
 
 
@@ -99,11 +101,13 @@ def main(argv=None) -> int:
     cfg = SddmmConfig(k=args.k, alpha=args.alpha, delta=args.delta,
                       panel_height=args.panel_height,
                       backend=args.backend,
+                      col_mode=args.col_mode,
                       residual_mode=args.residual_mode,
                       row_strategy=args.row_strategy,
                       subpack_min_nnz=args.subpack_min_nnz,
                       subblock_width=args.subblock_width,
                       out_dtype=args.out_dtype,
+                      reorder_cache=args.reorder_cache,
                       num_iterations=args.iterations)
     pipe = BsmrSddmm(csr, cfg, device=args.device)
 
@@ -121,7 +125,12 @@ def main(argv=None) -> int:
         A = make_dense(csr.rows, args.k, seed=1337)
         B = make_dense(args.k, csr.cols, seed=1338)
         log = pipe.benchmark(A, B, validate=args.validate,
-                             time_csr_emit=not args.fast_bench, file=name)
+                             time_csr_emit=not args.fast_bench,
+                             tier_times=args.tier_times, file=name)
+        if args.evaluate:
+            from bsmr_sddmm_tpu_torch.evaluate import evaluate_reordering
+            ev = evaluate_reordering(csr, cfg.replace(delta=log.delta))
+            log.extras.update(ev.as_extras())
         emit(log, f"BSMR_k_{args.k}_a_{args.alpha}_d_{args.delta}")
         return 0 if (not args.validate or log.check_result == "pass") else 1
 

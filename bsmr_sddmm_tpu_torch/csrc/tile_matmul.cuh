@@ -1,6 +1,7 @@
 // One (PH x BW) output tile of a block-sparse SDDMM, computed by one thread
-// block in fp32 (FFMA). Shared by bsr_dense.cu and subpack.cu, which differ
-// only in where the BW rows of the tile's B operand come from.
+// block in fp32 (FFMA). Shared by bsr_dense.cu, subpack.cu and
+// gathered_tile.cu, which differ only in where the BW rows of the tile's B
+// operand come from.
 //
 //   out[r][c] = sum_k a[r][k] * b_row(c)[k]
 //

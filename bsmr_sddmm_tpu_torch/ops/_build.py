@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 ``nvcc`` compiles the sources in this package's ``csrc/`` into one shared
-library with a plain C interface, for ``sm_90a`` (Hopper), at first use:
+library with a plain C interface, for ``sm_90a`` (Hopper), at first use.
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o libbsmr_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c -o <src>.o csrc/<src>.cu   (each)
+    nvcc -shared -o libbsmr_torch_kernels.so *.o
 
 The library lands in ``build/torch_kernels/<hash of sources + flags>/`` at
 the root of the checkout (``BSMR_TORCH_KERNEL_DIR`` overrides the parent
@@ -25,10 +28,10 @@ from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("bsr_dense.cu", "subpack.cu")
+SOURCES = ("bsr_dense.cu", "subpack.cu", "gathered_tile.cu")
 HEADERS = ("tile_matmul.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIB_NAME = "libbsmr_torch_kernels.so"
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
@@ -70,21 +73,37 @@ def find_nvcc() -> str:
         "kernels of bsmr_sddmm_tpu_torch cannot be built")
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands concurrently, wait for every one of them, and
+    return their joined output; raises if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for proc, cmd, out in zip(procs, cmds, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _compile(out: str) -> None:
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_CSRC, s) for s in SOURCES)]
+    build = os.path.dirname(out)
+    os.makedirs(build, exist_ok=True)
+    tag = f"tmp{os.getpid()}"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    objs = [os.path.join(build, f"{src}.{tag}.o") for src in SOURCES]
+    report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                        os.path.join(_CSRC, src)]
+                       for src, obj in zip(SOURCES, objs)])
+    tmp = f"{out}.{tag}"
+    report += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, out)
-    build_info.update(compiled=True, seconds=seconds,
-                      report=proc.stdout + proc.stderr)
+    build_info.update(compiled=True, seconds=time.perf_counter() - t0,
+                      report=report)
 
 
 def load_library() -> ctypes.CDLL:
@@ -104,6 +123,8 @@ def load_library() -> ctypes.CDLL:
         lib.bsmr_bsr_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.bsmr_subpack.restype = i
         lib.bsmr_subpack.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.bsmr_gathered_tile.restype = i
+        lib.bsmr_gathered_tile.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         build_info["path"] = path
         _lib = lib
         return _lib

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the SDDMM body's two tile tiers, their
+"""Hand-written Hopper kernels of the SDDMM body's tile tiers, their
 wrappers and their plain PyTorch versions.
 
 ``bsr_dense`` (csrc/bsr_dense.cu) replaces the JAX package's Pallas kernels
@@ -6,7 +6,13 @@ wrappers and their plain PyTorch versions.
 and ``make_bsr_dense_kernel`` (:144-201, G = 1): one kernel, where tile t
 reads column block ``step_cblock[t // G]``; a G = 1 plan passes its
 ``tile_cblock`` as ``step_cblock``. ``subpack`` (csrc/subpack.cu) replaces
-``make_subpack_kernel`` (:261-327).
+``make_subpack_kernel`` (:261-327). ``dense_tile`` and ``fused_gathered``
+are two wrappers over one kernel (csrc/gathered_tile.cu) whose tile t reads
+the bw rows ``Bt[cols[t, :]]`` by index: ``dense_tile`` replaces
+``make_dense_tile_kernel`` (:204-252, the ``col_mode="reorder"`` dense
+tier) and ``fused_gathered`` replaces ``make_fused_gathered_kernel``
+(:330-416, the ``gathered_backend="fused"`` gathered tier). Each keeps its
+own launch count, so a run shows which tier went through the kernel.
 
 What bounds them on the card: a (ph x bw) = (32 x 128) tile at depth K reads
 4*K*(32 + 128) bytes of operands and writes 4*32*128 bytes, for 2*32*128*K
@@ -200,3 +206,89 @@ def subpack(A_panels: torch.Tensor, Bt2: torch.Tensor,
 
 
 subpack.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Gathered-column tiles: the reorder dense tier and the fused gathered tier
+# ---------------------------------------------------------------------------
+
+def gathered_tile_plain(A_panels: torch.Tensor, Bt: torch.Tensor,
+                        panel: torch.Tensor, cols: torch.Tensor, *,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """Plain version of the gathered-tile kernel: ``out[t] =
+    A_panels[panel[t]] @ Bt[cols[t, :]].T``, ids outside [0, N) reading as
+    zero (through one zero row appended to Bt). (T, ph, bw)."""
+    T, bw = cols.shape
+    N, k = Bt.shape
+    ids = cols.reshape(-1).long()
+    ids = torch.where((ids >= 0) & (ids < N), ids, N)
+    b = F.pad(Bt, (0, 0, 0, 1)).index_select(0, ids).reshape(T, bw, k)
+    a = A_panels.index_select(0, panel)
+    return torch.bmm(a, b.transpose(1, 2)).to(out_dtype)
+
+
+def _gathered_tile(wrapper, A_panels: torch.Tensor, Bt: torch.Tensor,
+                   panel: torch.Tensor, cols: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Shared body of :func:`dense_tile` and :func:`fused_gathered`; a
+    launch counts in ``wrapper.launches``."""
+    name = wrapper.__name__
+    dev = _check_operands(name, A_panels, Bt,
+                          (("panel ids", panel), ("column ids", cols)),
+                          out_dtype)
+    _check(cols.dim() == 2 and panel.dim() == 1
+           and cols.shape[0] == panel.shape[0],
+           f"{name}: column ids must be (T, bw) for T = {panel.shape[0]} "
+           f"panel ids, got {tuple(cols.shape)}")
+    if dev.type == "cpu":
+        return gathered_tile_plain(A_panels, Bt, panel, cols,
+                                   out_dtype=out_dtype)
+    T, bw = cols.shape
+    ph, K = A_panels.shape[1], A_panels.shape[2]
+    _check((ph, bw) in GEOMETRIES, f"{name}: no kernel for tile {ph}x{bw}")
+    ptrs = _launch_args(dev, (A_panels, Bt, panel, cols))
+    out = torch.empty((T, ph, bw), dtype=out_dtype, device=dev)
+    if T == 0:
+        return out
+    from bsmr_sddmm_tpu_torch.ops._build import load_library
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.bsmr_gathered_tile(
+            *ptrs, out.data_ptr(), T, ph, bw, K, Bt.shape[0],
+            int(out_dtype == torch.float16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(name, err)
+    wrapper.launches += 1
+    return out
+
+
+#: Plain versions of :func:`dense_tile` and :func:`fused_gathered`.
+dense_tile_plain = fused_gathered_plain = gathered_tile_plain
+
+
+def dense_tile(A_panels: torch.Tensor, Bt: torch.Tensor,
+               tile_panel: torch.Tensor, tile_cols: torch.Tensor, *,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Reorder-mode dense tier: (T, ph, bw) tiles, tile t from panel
+    ``tile_panel[t]`` and the bw rows ``tile_cols[t]`` of ``Bt`` (N, K).
+    Kernel on CUDA tensors, plain version on CPU tensors."""
+    return _gathered_tile(dense_tile, A_panels, Bt, tile_panel, tile_cols,
+                          out_dtype)
+
+
+dense_tile.launches = 0
+
+
+def fused_gathered(A_panels: torch.Tensor, Bt: torch.Tensor,
+                   g_panel: torch.Tensor, g_cols: torch.Tensor, *,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused gathered tier: (Tg, ph, bw) tiles, tile t from panel
+    ``g_panel[t]`` and the bw rows ``g_cols[t]`` of ``Bt`` (N, K), read
+    inside the kernel. Kernel on CUDA tensors, plain version on CPU
+    tensors."""
+    return _gathered_tile(fused_gathered, A_panels, Bt, g_panel, g_cols,
+                          out_dtype)
+
+
+fused_gathered.launches = 0

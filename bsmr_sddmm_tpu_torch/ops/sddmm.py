@@ -5,18 +5,23 @@ The counterpart of ``bsmr_sddmm_tpu.ops.sddmm`` (``device_plan``,
 ``make_sddmm_body``, ``sddmm_ref``). Given A (M, K) and Bt = B^T (N, K):
 
 1. ``A_perm = A[row_perm_padded]``, viewed as panels (P, ph, K);
-2. dense tier: ``dense_kernels.bsr_dense`` over natural column blocks;
+2. dense tier: ``dense_kernels.bsr_dense`` over natural column blocks
+   (``col_mode="bsr"``), or ``dense_kernels.dense_tile`` over each tile's
+   own ``tile_cols`` (``col_mode="reorder"``), one launch over all tiles;
 3. packed tier: ``Bt2 = Bt[sp_colperm]`` once, then ``dense_kernels.subpack``;
-4. gathered tier: a row gather of each tile's bw columns and one ``bmm``;
+4. gathered tier: ``dense_kernels.fused_gathered`` where the JAX body takes
+   its fused arm (``gathered_backend="fused"``, Tg > 0, no gather windows),
+   else a row gather of each tile's bw columns and one ``bmm``;
 5. residual: two row gathers and a multiply-sum per nonzero.
 
 The output is the four tiers' arrays (``emit="rphm"``) or one gather of
 their concatenation along ``rphm_to_csr`` (``emit="csr"``, CSR value order).
-Tiers 4 and 5 are plain torch (the JAX package leaves them to XLA too). The
-JAX body's gather windows (``g_groups``, ``res_groups``) avoid a gather-rate
-cliff of its TPU; here those plans run by absolute index, which gives the
-same values. Padded tail slots are computed from valid pad indices; no slot
-past a tier's real count is ever read by ``rphm_to_csr``.
+The residual and the unfused gathered tier are plain torch (the JAX package
+leaves them to XLA too). The JAX body's gather windows (``g_groups``,
+``res_groups``) avoid a gather-rate cliff of its TPU; here those plans run
+by absolute index, which gives the same values. Padded tail slots are
+computed from valid pad indices; no slot past a tier's real count is ever
+read by ``rphm_to_csr``.
 """
 
 from __future__ import annotations
@@ -34,12 +39,14 @@ from bsmr_sddmm_tpu_torch.pack import TilePlan
 
 class DevicePlan(NamedTuple):
     """A TilePlan's index arrays as int32 tensors on one device.
-    ``tile_src`` holds one column block per fat step (``step_cblock``), or
-    one per tile (``tile_cblock``) when the plan's fat group is 1."""
+    ``tile_src`` holds, for a bsr plan, one column block per fat step
+    (``step_cblock``, (T // G,)), or one per tile (``tile_cblock``) when
+    the plan's fat group is 1; for a reorder plan, each tile's column ids
+    (``tile_cols``, (T, bw))."""
 
     row_perm_padded: torch.Tensor   # (num_panels*ph,)
     tile_panel: torch.Tensor        # (T,)
-    tile_src: torch.Tensor          # (T // G,)
+    tile_src: torch.Tensor          # (T // G,) or (T, bw)
     tile_scatter: torch.Tensor      # (T, ph, bw)
     sp_panel: torch.Tensor          # (Tp,)
     sp_sub: torch.Tensor            # (Tp, S)
@@ -63,6 +70,12 @@ def device_plan(plan: TilePlan, device, emit: str = "csr") -> DevicePlan:
     and only CSR emission and the statistics need them."""
     device = torch.device(device)
     light = emit == "rphm"
+    if plan.mode != "bsr":
+        tile_src = plan.tile_cols
+    elif plan.fat_group > 1:
+        tile_src = plan.step_cblock
+    else:
+        tile_src = plan.tile_cblock
 
     def up(arr, shape=(0,)):
         arr = np.zeros(shape, np.int32) if arr is None else arr
@@ -75,8 +88,7 @@ def device_plan(plan: TilePlan, device, emit: str = "csr") -> DevicePlan:
     return DevicePlan(
         row_perm_padded=up(plan.row_perm_padded),
         tile_panel=up(plan.tile_panel),
-        tile_src=up(plan.step_cblock if plan.fat_group > 1
-                    else plan.tile_cblock),
+        tile_src=up(tile_src),
         tile_scatter=maps(plan.tile_scatter),
         sp_panel=up(plan.sp_panel),
         sp_sub=up(plan.sp_sub, (0, 1)),
@@ -105,7 +117,9 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     bw), residual (E,))``. ``only_tier`` ("dense" | "packed" | "gathered" |
     "residual") returns that tier's array alone. ``backend`` "auto" runs
     the hand kernels on CUDA tensors and their plain versions on CPU
-    tensors; "torch" runs the plain versions everywhere."""
+    tensors; "torch" runs the plain versions everywhere. The gathered tier
+    runs ``fused_gathered`` exactly when the JAX body picks its fused arm:
+    ``gathered_backend="fused"``, Tg > 0 and no gather windows."""
     backend = config.backend if backend is None else backend
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -113,9 +127,6 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
         raise ValueError(f"unknown emit {emit!r}")
     if only_tier not in (None, "dense", "packed", "gathered", "residual"):
         raise ValueError(f"unknown only_tier {only_tier!r}")
-    if plan.mode != "bsr":
-        raise NotImplementedError(
-            'col_mode="reorder" plans are not ported yet; see ROADMAP.md')
     ph, bw, k = plan.panel_height, plan.block_width, plan.k
     num_panels = max(plan.num_panels, 1)
     G = plan.fat_group
@@ -123,13 +134,25 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     sw = plan.subblock_width
     out_dt = (torch.float16 if config.out_dtype == "float16"
               else torch.float32)
+    Tg = plan.g_panel.shape[0]
+    fused = (config.gathered_backend == "fused" and Tg > 0
+             and plan.g_groups is None)
     plain = backend == "torch"
-    dense_op = dk.bsr_dense_plain if plain else dk.bsr_dense
     packed_op = dk.subpack_plain if plain else dk.subpack
+    fused_op = dk.fused_gathered_plain if plain else dk.fused_gathered
 
-    def dense_out(A_panels, Bt, dplan):
-        return dense_op(A_panels, Bt, dplan.tile_panel, dplan.tile_src,
-                        fat_group=G, block_width=bw, out_dtype=out_dt)
+    if plan.mode == "bsr":
+        bsr_op = dk.bsr_dense_plain if plain else dk.bsr_dense
+
+        def dense_out(A_panels, Bt, dplan):
+            return bsr_op(A_panels, Bt, dplan.tile_panel, dplan.tile_src,
+                          fat_group=G, block_width=bw, out_dtype=out_dt)
+    else:
+        tile_op = dk.dense_tile_plain if plain else dk.dense_tile
+
+        def dense_out(A_panels, Bt, dplan):
+            return tile_op(A_panels, Bt, dplan.tile_panel, dplan.tile_src,
+                           out_dtype=out_dt)
 
     def packed_out(A_panels, Bt, dplan):
         if Tp == 0:
@@ -139,7 +162,9 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
                          subblock_width=sw, out_dtype=out_dt)
 
     def gathered_out(A_panels, Bt, dplan):
-        Tg = dplan.g_panel.shape[0]
+        if fused:
+            return fused_op(A_panels, Bt, dplan.g_panel, dplan.g_cols,
+                            out_dtype=out_dt)
         b = Bt.index_select(0, dplan.g_cols.reshape(-1)).reshape(Tg, bw, k)
         a = A_panels.index_select(0, dplan.g_panel)
         return torch.bmm(a, b.transpose(1, 2)).to(out_dt)

@@ -216,9 +216,6 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
     t0 = _time.perf_counter()
     if reord.dense_cols is None:
         raise ValueError("run the column split (split_columns) first")
-    if config.col_mode != "bsr":
-        raise NotImplementedError(
-            'col_mode="reorder" is not ported yet; see ROADMAP.md')
     k = config.k if k is None else k
     ph, bw = config.panel_height, config.block_width
     perm = reord.row_perm.astype(np.int64)
@@ -262,6 +259,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
     # computed
     # on per-TILE arrays first, so entries scatter directly into their
     # final slots: one pass over the (T, ph, bw) map.
+    mode = config.col_mode
     if num_tiles0:
         tile_panel0 = np.repeat(np.arange(num_panels, dtype=np.int32),
                                 np.diff(dco) // bw)
@@ -274,70 +272,80 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
         tile_cols0 = np.zeros((0, bw), np.int32)
     fat_group = 1
     step_cblock = None
-    cblock0 = (tile_cols0[:, 0] // bw).astype(np.int32)
-    # sort tiles by (cblock, panel): consecutive tiles with the same
-    # cblock can then reuse one resident B block
-    order = (np.lexsort((tile_panel0, cblock0))
-             if num_tiles0 > 1 else
-             np.arange(num_tiles0, dtype=np.int64))
-    cb_sorted = cblock0[order]
-    # fat steps: G same-cblock tiles per step share one B block. Each
-    # same-cblock run pads to a G multiple; G adapts to the run
-    # structure so padding stays small.
-    want_fat = config.dense_fat_group
-    G = 1
-    if want_fat > 1 and num_tiles0:
-        run_starts = np.nonzero(np.diff(cb_sorted, prepend=-1))[0]
-        run_lens = np.diff(np.append(run_starts, num_tiles0))
-        # choose G by minimizing padded tiles x per-tile cost:
-        # fatter steps amortize a per-step cost but pad each
-        # same-cblock run up to a G multiple. The weights are the
-        # JAX package's, fitted on its TPU and kept unchanged so
-        # that plans stay bit-identical; costs for this package's
-        # kernels are later work (ROADMAP.md).
-        best_score = None
-        g_cand = 1
-        while g_cand <= want_fat:
-            padded = int((-(-run_lens // g_cand) * g_cand).sum())
-            score = padded * (52.0 + 208.0 / g_cand)
-            if best_score is None or score < best_score:
-                best_score, G = score, g_cand
-            g_cand *= 2
-    if G > 1:
-        padded_lens = -(-run_lens // G) * G
-        T_flat0 = int(padded_lens.sum())
-        n_steps = exec_size(T_flat0 // G, config.bucket_shapes,
-                            config.dense_chunk)
-        T = n_steps * G
-        run_dst = np.zeros(run_starts.shape[0], np.int64)
-        np.cumsum(padded_lens[:-1], out=run_dst[1:])
-        dst = _concat_ranges(run_dst, run_lens)
-        tile_cblock = np.zeros(T, np.int32)
-        tile_cblock[:T_flat0] = np.repeat(cb_sorted[run_starts],
-                                          padded_lens)
-        tile_panel = np.zeros(T, np.int32)
-        tile_panel[dst] = tile_panel0[order]
-        # pad tiles read their run's (or block 0's) columns; their
-        # scatter slots are trash so the values never land
-        tile_cols = np.minimum(
-            tile_cblock[:, None].astype(np.int64) * bw
-            + np.arange(bw), N - 1).astype(np.int32)
-        tile_cols[dst] = tile_cols0[order]
-        step_cblock = tile_cblock.reshape(n_steps, G)[:, 0].copy()
-        fat_group = G
-        final_of_sorted = dst
+    tile_cblock = None
+    if mode == "bsr":
+        cblock0 = (tile_cols0[:, 0] // bw).astype(np.int32)
+        # sort tiles by (cblock, panel): consecutive tiles with the same
+        # cblock can then reuse one resident B block
+        order = (np.lexsort((tile_panel0, cblock0))
+                 if num_tiles0 > 1 else
+                 np.arange(num_tiles0, dtype=np.int64))
+        cb_sorted = cblock0[order]
+        # fat steps: G same-cblock tiles per step share one B block. Each
+        # same-cblock run pads to a G multiple; G adapts to the run
+        # structure so padding stays small.
+        want_fat = config.dense_fat_group
+        G = 1
+        if want_fat > 1 and num_tiles0:
+            run_starts = np.nonzero(np.diff(cb_sorted, prepend=-1))[0]
+            run_lens = np.diff(np.append(run_starts, num_tiles0))
+            # choose G by minimizing padded tiles x per-tile cost:
+            # fatter steps amortize a per-step cost but pad each
+            # same-cblock run up to a G multiple. The weights are the
+            # JAX package's, fitted on its TPU and kept unchanged so
+            # that plans stay bit-identical; costs for this package's
+            # kernels are later work (ROADMAP.md).
+            best_score = None
+            g_cand = 1
+            while g_cand <= want_fat:
+                padded = int((-(-run_lens // g_cand) * g_cand).sum())
+                score = padded * (52.0 + 208.0 / g_cand)
+                if best_score is None or score < best_score:
+                    best_score, G = score, g_cand
+                g_cand *= 2
+        if G > 1:
+            padded_lens = -(-run_lens // G) * G
+            T_flat0 = int(padded_lens.sum())
+            n_steps = exec_size(T_flat0 // G, config.bucket_shapes,
+                                config.dense_chunk)
+            T = n_steps * G
+            run_dst = np.zeros(run_starts.shape[0], np.int64)
+            np.cumsum(padded_lens[:-1], out=run_dst[1:])
+            dst = _concat_ranges(run_dst, run_lens)
+            tile_cblock = np.zeros(T, np.int32)
+            tile_cblock[:T_flat0] = np.repeat(cb_sorted[run_starts],
+                                              padded_lens)
+            tile_panel = np.zeros(T, np.int32)
+            tile_panel[dst] = tile_panel0[order]
+            # pad tiles read their run's (or block 0's) columns; their
+            # scatter slots are trash so the values never land
+            tile_cols = np.minimum(
+                tile_cblock[:, None].astype(np.int64) * bw
+                + np.arange(bw), N - 1).astype(np.int32)
+            tile_cols[dst] = tile_cols0[order]
+            step_cblock = tile_cblock.reshape(n_steps, G)[:, 0].copy()
+            fat_group = G
+            final_of_sorted = dst
+        else:
+            T = exec_size(num_tiles0, config.bucket_shapes,
+                          config.dense_chunk)
+            tile_panel = np.zeros(T, np.int32)
+            tile_panel[:num_tiles0] = tile_panel0[order]
+            tile_cols = np.zeros((T, bw), np.int32)
+            tile_cols[:num_tiles0] = tile_cols0[order]
+            tile_cblock = np.zeros(T, np.int32)
+            tile_cblock[:num_tiles0] = cb_sorted
+            final_of_sorted = np.arange(num_tiles0, dtype=np.int64)
+        final_of_orig = np.empty(num_tiles0, np.int64)
+        final_of_orig[order] = final_of_sorted
     else:
-        T = exec_size(num_tiles0, config.bucket_shapes,
-                      config.dense_chunk)
-        tile_panel = np.zeros(T, np.int32)
-        tile_panel[:num_tiles0] = tile_panel0[order]
-        tile_cols = np.zeros((T, bw), np.int32)
-        tile_cols[:num_tiles0] = tile_cols0[order]
-        tile_cblock = np.zeros(T, np.int32)
-        tile_cblock[:num_tiles0] = cb_sorted
-        final_of_sorted = np.arange(num_tiles0, dtype=np.int64)
-    final_of_orig = np.empty(num_tiles0, np.int64)
-    final_of_orig[order] = final_of_sorted
+        # reorder tiles keep panel order; each gathers its own tile_cols
+        T = exec_size(num_tiles0, config.bucket_shapes, config.dense_chunk)
+        tile_panel = np.zeros(T, dtype=np.int32)
+        tile_panel[:num_tiles0] = tile_panel0
+        tile_cols = np.zeros((T, bw), dtype=np.int32)
+        tile_cols[:num_tiles0] = tile_cols0
+        final_of_orig = np.arange(num_tiles0, dtype=np.int64)
 
     # --- dense scatter map + inverse map, one pass -------------------------
     # rphm_to_csr (rphm layout -> CSR order) is built tier by tier from
@@ -721,7 +729,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
         row_perm_padded=row_perm_padded,
         rphm_to_csr=rphm_to_csr,
         delta_used=float(reord.delta),
-        mode="bsr", tile_cblock=tile_cblock,
+        mode=mode, tile_cblock=tile_cblock,
         fat_group=fat_group, step_cblock=step_cblock,
         window_rows=window_rows, a_window_rows=a_window_rows,
         g_groups=g_groups, res_groups=res_groups,

@@ -1,10 +1,10 @@
 """BSMR reordering: row-similarity clustering + per-panel column split.
 
-A copy of the ``col_mode="bsr"`` path of ``bsmr_sddmm_tpu.reorder`` (plain
-NumPy/SciPy), kept in this package because importing ``bsmr_sddmm_tpu``
-imports JAX; the same mask gives the same arrays in both packages
-(tests/test_torch_host.py). It re-implements, host-side and vectorized, the
-CUDA original's two-stage preprocessing:
+A copy of ``bsmr_sddmm_tpu.reorder`` (plain NumPy/SciPy), kept in this
+package because importing ``bsmr_sddmm_tpu`` imports JAX; the same mask
+gives the same arrays in both packages (tests/test_torch_host.py). It
+re-implements, host-side and vectorized, the CUDA original's two-stage
+preprocessing:
 
 * Row reordering (src/rowReordering.cu): every row is encoded as a
   histogram over ``encoding_block``-wide column blocks
@@ -15,11 +15,15 @@ CUDA original's two-stage preprocessing:
   the final permutation orders rows by cluster, dropping empty rows
   (get_permutation_gpu, rowReordering.cu:893-1007).
 
-* Column split (:func:`col_split_bsr`): rows are cut into panels of
-  ``panel_height``; per panel, the natural ``block_width``-wide column blocks
-  whose nonzero count reaches ``ceil(delta * panel_height * block_width)``
-  become *dense* tiles; the rest is the *sparse residual*. The original's
-  per-panel column reordering (``col_mode="reorder"``) is not ported yet.
+* Column split: rows are cut into panels of ``panel_height``. With
+  ``col_mode="bsr"`` (:func:`col_split_bsr`) the natural
+  ``block_width``-wide column blocks of a panel whose nonzero count reaches
+  ``ceil(delta * panel_height * block_width)`` become *dense* tiles. With
+  ``col_mode="reorder"`` (:func:`col_reordering`, the original's
+  src/colReordering.cu:274-404) a panel's nonzero columns are sorted
+  descending by in-panel count, padded to a multiple of ``block_width``
+  with a sentinel, and the leading groups that reach the same threshold
+  become dense column groups. The rest is the *sparse residual*.
 
 Clustering is a host-side algorithm with two strategies: ``exact``
 (faithful accumulate-greedy semantics, vectorized sweeps) and ``fast``
@@ -332,11 +336,118 @@ def _concat_ranges(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
 def col_reordering(csr: CSR, reord: BsmrReordering,
                    config: SddmmConfig,
                    delta: Optional[float] = None) -> BsmrReordering:
-    """Per-panel column reorder (``col_mode="reorder"``, the JAX package's
-    ``reorder.col_reordering``). Not ported yet."""
-    raise NotImplementedError(
-        'col_mode="reorder" (col_reordering and the dense-tile kernel it '
-        'feeds) is not ported yet; see ROADMAP.md')
+    """Per-panel column reorder + dense/sparse split (reference
+    colReordering_cpu, colReordering.cu:274-404), fully vectorized across
+    panels (the reference parallelizes with OpenMP; we sort once globally).
+
+    Fills the dense/sparse column fields of ``reord`` in place and returns
+    it. ``dense_cols`` may contain the sentinel ``csr.cols`` for padding
+    (colReordering.cu:338-343); sentinel columns never reach the residual.
+    """
+    t0 = time.perf_counter()
+    delta = config.delta if delta is None else delta
+    ph, bw = config.panel_height, config.block_width
+    perm = reord.row_perm
+    R = perm.shape[0]
+    num_panels = -(-R // ph) if R else 0
+    N = csr.cols
+    threshold = int(np.ceil(delta * ph * bw))
+
+    # (panel, col) nonzero counts over the reordered rows
+    row_nnz = csr.row_nnz()
+    perm_nnz = row_nnz[perm]
+    panel_of_entry = np.repeat(np.arange(R, dtype=np.int64) // ph, perm_nnz)
+    entry_idx = _concat_ranges(csr.row_offsets[perm], perm_nnz)
+    cols_of_entry = csr.col_indices[entry_idx].astype(np.int64)
+    keys = panel_of_entry * np.int64(N) + cols_of_entry
+    uniq, counts = np.unique(keys, return_counts=True)
+    pc_panel = uniq // N
+    pc_col = uniq % N
+    # within each panel: count descending, column ascending on ties
+    # (reference thrust descending sort is unstable on ties; this is the
+    # deterministic choice)
+    sort_idx = np.lexsort((pc_col, -counts, pc_panel))
+    pc_panel = pc_panel[sort_idx]
+    pc_col = pc_col[sort_idx]
+    counts = counts[sort_idx]
+
+    # per-panel segment boundaries in the sorted arrays
+    panel_starts = np.searchsorted(pc_panel, np.arange(num_panels + 1))
+    panel_len = np.diff(panel_starts)          # nonzero cols per panel
+    padded_len = -(-panel_len // bw) * bw      # pad to multiple of bw
+
+    # scatter sorted (col, count) into a padded layout:
+    # slot p*maxpad.. but memory-friendlier: offsets per panel
+    padded_offsets = np.zeros(num_panels + 1, np.int64)
+    np.cumsum(padded_len, out=padded_offsets[1:])
+    total_padded = int(padded_offsets[-1])
+    cols_padded = np.full(total_padded, N, dtype=np.int64)    # sentinel pad
+    counts_padded = np.zeros(total_padded, dtype=np.int64)
+    within = np.arange(pc_panel.shape[0], dtype=np.int64) \
+        - panel_starts[pc_panel]
+    dest = padded_offsets[pc_panel] + within
+    cols_padded[dest] = pc_col
+    counts_padded[dest] = counts
+
+    # group (tile-column) sums, bw entries per group
+    num_groups = total_padded // bw
+    group_sums = counts_padded.reshape(num_groups, bw).sum(axis=1)
+    group_panel = np.repeat(np.arange(num_panels), padded_len // bw)
+    dense_group = group_sums >= threshold
+    # counts are descending within a panel, so passing groups are a prefix;
+    # enforce it anyway (guards the delta=0 all-dense and padded-tail cases)
+    # via a per-panel cumulative AND.
+    if num_groups:
+        grp_starts = np.zeros(num_panels + 1, np.int64)
+        np.cumsum(padded_len // bw, out=grp_starts[1:])
+        # cumulative AND within panel: a group is dense iff all groups
+        # before it in the panel are dense too
+        not_dense = ~dense_group
+        first_fail = np.full(num_panels, np.iinfo(np.int64).max)
+        fail_idx = np.nonzero(not_dense)[0]
+        if fail_idx.size:
+            np.minimum.at(first_fail, group_panel[fail_idx], fail_idx)
+        dense_group = (np.arange(num_groups)
+                       < first_fail[group_panel])
+
+    dense_cols_count = np.zeros(num_panels, np.int64)
+    if num_groups:
+        np.add.at(dense_cols_count, group_panel, dense_group * bw)
+
+    # dense cols: the first dense_cols_count[p] padded cols of each panel
+    dense_col_offsets = np.zeros(num_panels + 1, np.int64)
+    np.cumsum(dense_cols_count, out=dense_col_offsets[1:])
+    dense_sel = _concat_ranges(padded_offsets[:-1], dense_cols_count)
+    dense_cols = cols_padded[dense_sel]
+
+    # sparse cols: the remaining *real* (non-sentinel) cols of each panel
+    sparse_start = padded_offsets[:-1] + dense_cols_count
+    sparse_real_len = np.maximum(panel_len - dense_cols_count, 0)
+    sparse_sel = _concat_ranges(sparse_start, sparse_real_len)
+    sparse_cols = cols_padded[sparse_sel]
+    sparse_counts = counts_padded[sparse_sel]
+    sparse_col_offsets = np.zeros(num_panels + 1, np.int64)
+    np.cumsum(sparse_real_len, out=sparse_col_offsets[1:])
+
+    # residual nnz per panel (reference sparseValueOffsets,
+    # colReordering.cu:352-369)
+    sparse_nnz_per_panel = np.zeros(num_panels, np.int64)
+    if sparse_counts.size:
+        panel_of_sparse = np.repeat(np.arange(num_panels), sparse_real_len)
+        np.add.at(sparse_nnz_per_panel, panel_of_sparse, sparse_counts)
+    sparse_value_offsets = np.zeros(num_panels + 1, np.int64)
+    np.cumsum(sparse_nnz_per_panel, out=sparse_value_offsets[1:])
+
+    reord.dense_cols = dense_cols
+    reord.dense_col_offsets = dense_col_offsets
+    reord.sparse_cols = sparse_cols
+    reord.sparse_col_offsets = sparse_col_offsets
+    reord.sparse_value_offsets = sparse_value_offsets
+    reord.col_time_ms = (time.perf_counter() - t0) * 1e3
+    reord.panel_height = ph
+    reord.block_width = bw
+    reord.delta = delta
+    return reord
 
 
 def col_split_bsr(csr: CSR, reord: BsmrReordering,

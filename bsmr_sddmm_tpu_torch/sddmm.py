@@ -7,9 +7,8 @@ per alpha so a delta/K sweep reuses it.
 
 The device is ``cuda`` when one is present; the CPU runs the kernels' plain
 versions only when the caller asks for it, with ``device="cpu"`` or CPU
-tensors. Autotune (``alpha``/``delta="auto"``), the dense fallback
-(``delta="dense"``), ``tier_times`` and the reorder cache are not ported
-yet and raise ``NotImplementedError``.
+tensors. Autotune (``alpha``/``delta="auto"``) and the dense fallback
+(``delta="dense"``) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from bsmr_sddmm_tpu_torch.cache import cached_row_reordering
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import CSR
 from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
@@ -86,12 +86,12 @@ class BsmrSddmm:
     def _row_reordering(self, alpha: Optional[float] = None
                         ) -> BsmrReordering:
         cfg = self.config
-        if cfg.reorder_cache:
-            raise _not_ported("the on-disk reorder cache (reorder_cache)")
         alpha = cfg.alpha if alpha is None else alpha
         key = (alpha, cfg.row_strategy)
         if key not in self._row_cache:
-            self._row_cache[key] = row_reordering(
+            reorder_rows = (cached_row_reordering if cfg.reorder_cache
+                            else row_reordering)
+            self._row_cache[key] = reorder_rows(
                 self.csr, alpha, cfg.replace(alpha=alpha))
         return self._row_cache[key]
 
@@ -138,10 +138,10 @@ class BsmrSddmm:
                   file: str = "") -> RunLog:
         """Timed run producing a reference-schema RunLog: the headline
         ``sddmm_ms`` is the rphm body (every nonzero computed once, no
-        reorder), ``sddmm_csr_ms`` the CSR-order emission."""
+        reorder), ``sddmm_csr_ms`` the CSR-order emission. ``tier_times``
+        adds each tier's time alone (``tier_*_ms``) and their sum over the
+        headline (``tier_overlap_efficiency``)."""
         _check_ported(alpha, delta)
-        if tier_times:
-            raise _not_ported("the per-tier time split (tier_times)")
         cfg = self.config
         device = self._device_for(A)
         A_t, Bt_t = self._operands(A, B, device)
@@ -149,9 +149,9 @@ class BsmrSddmm:
         reord = self.reorder(alpha, delta)
         plan = pack_tiles(self.csr, reord, cfg, k=k)
         timer = time_cuda if device.type == "cuda" else time_host
+        dplan = device_plan(plan, device, emit="rphm")
         ms, _ = timer(self.compile(plan, backend, emit="rphm"), A_t, Bt_t,
-                      device_plan(plan, device, emit="rphm"),
-                      iterations=cfg.num_iterations)
+                      dplan, iterations=cfg.num_iterations)
         ms_csr, out = 0.0, None
         if time_csr_emit or validate:
             fn = self.compile(plan, backend, emit="csr")
@@ -191,6 +191,22 @@ class BsmrSddmm:
             f"{2.0 * self.csr.nnz * k / (ms_csr * 1e6):.3f}"
             if ms_csr > 0 else "0")
         log.extras["fat_group"] = plan.fat_group
+        if tier_times:
+            # each tier timed alone (the CUDA original's dense/sparse
+            # overlap measurement, src/sddmmKernel.cu:2834-2844); the tiers
+            # run back to back in one call, so the sum shows where the
+            # headline time goes
+            tiers = ["dense", "gathered", "residual"]
+            if plan.num_packed:
+                tiers.insert(1, "packed")
+            tier_ms = {}
+            for tier in tiers:
+                tfn = make_sddmm_body(plan, cfg, backend, only_tier=tier)
+                tier_ms[tier], _ = timer(tfn, A_t, Bt_t, dplan,
+                                         iterations=cfg.num_iterations)
+                log.extras[f"tier_{tier}_ms"] = f"{tier_ms[tier]:.6f}"
+            overlap = sum(tier_ms.values()) / ms if ms > 0 else 0.0
+            log.extras["tier_overlap_efficiency"] = f"{overlap:.3f}"
         if validate:
             B_np = _host(B)
             B_np = B_np if B_np.shape[0] == k else B_np.T

@@ -9,14 +9,20 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
 2. build: nvcc compiles csrc/*.cu for sm_90a (into build/torch_kernels/);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of plans packed from the SUITE matrix banded_mesh_32k at
-   K=128 and K=32 (the plan's fat group G and G=1; fp32 and fp16 output),
-   with max errors and CUDA-event times of both;
-4. main path: BsmrSddmm(csr, cfg).benchmark(A, B, validate=True) on
-   banded_mesh_32k and community_20k at K=128 (and once with fp16 output):
-   the result must pass check_data against the fp64 oracle, and both
-   kernels' launch counters must rise during the run;
+   K=128 and K=32 (fp32 and fp16 output), with max errors and CUDA-event
+   times of both: bsr_dense and subpack on bsr plans (the plan's fat group
+   G and G=1), dense_tile and fused_gathered on col_mode="reorder" plans
+   (alpha 0.3, delta 0.05);
+4. main path: BsmrSddmm(csr, cfg).benchmark(A, B, validate=True) at K=128
+   on banded_mesh_32k and community_20k: the bsr path (and once with fp16
+   output), the reorder path with the fused gathered tier (once with
+   tier_times), and the bsr path with the fused gathered tier. Every run
+   must pass check_data against the fp64 oracle, and the launch counters
+   of the kernels it runs, set to 0 just before it, must rise during it;
 5. CLI: python -m bsmr_sddmm_tpu_torch.cli -f <suite matrix .mtx> -k 128
-   -a 0.3 -d 0.002 --validate exits 0.
+   -a 0.3 -d 0.002 --validate exits 0, and so does the run with
+   --col-mode reorder -d 0.05 --evaluate --tier-times --reorder-cache
+   (BSMR_CACHE_DIR in a temporary directory).
 
 The last lines are the nvidia-smi line, a JSON line with one record per
 kernel, and {"ok": true, "device": {...}}. Any failure, or no CUDA device,
@@ -49,12 +55,27 @@ KERNELS = {
                       replaces="bsmr_sddmm_tpu/ops/pallas_dense.py:466"),
     "subpack": dict(source=f"{PKG}/csrc/subpack.cu",
                     replaces="bsmr_sddmm_tpu/ops/pallas_dense.py:315"),
+    "dense_tile": dict(source=f"{PKG}/csrc/gathered_tile.cu",
+                       replaces="bsmr_sddmm_tpu/ops/pallas_dense.py:238"),
+    "fused_gathered": dict(source=f"{PKG}/csrc/gathered_tile.cu",
+                           replaces="bsmr_sddmm_tpu/ops/pallas_dense.py:405"),
 }
-# the main path's cells: SUITE matrix, alpha; delta 0.002 and subpack 12
-# (the JAX package's best arms for them, bench.py R4_BEST), K=128, ph=32
-MAIN = (("banded_mesh_32k", 0.3, "float32"),
-        ("community_20k", 0.1, "float32"),
-        ("banded_mesh_32k", 0.3, "float16"))
+# the main path's runs, K=128, ph=32, subpack 12: (SUITE matrix, alpha,
+# delta, out dtype, col_mode, gathered_backend, tier_times, the kernels the
+# run must launch). The bsr runs take delta 0.002 (the JAX package's best
+# arm for them, bench.py R4_BEST); the reorder runs delta 0.05 / 0.1, where
+# every tier of the plan has real tiles (the CUDA original's delta 0.3
+# leaves banded_mesh_32k no dense tile at ph=32, bw=128).
+BSR, REORDER = ("bsr_dense", "subpack"), ("dense_tile", "subpack")
+MAIN = (("banded_mesh_32k", 0.3, 0.002, "float32", "bsr", "xla", False, BSR),
+        ("community_20k", 0.1, 0.002, "float32", "bsr", "xla", False, BSR),
+        ("banded_mesh_32k", 0.3, 0.002, "float16", "bsr", "xla", False, BSR),
+        ("banded_mesh_32k", 0.3, 0.05, "float32", "reorder", "fused", True,
+         REORDER + ("fused_gathered",)),
+        ("community_20k", 0.3, 0.1, "float32", "reorder", "fused", False,
+         REORDER + ("fused_gathered",)),
+        ("community_20k", 0.1, 0.002, "float32", "bsr", "fused", False,
+         BSR + ("fused_gathered",)))
 
 
 def fail(msg: str) -> None:
@@ -163,26 +184,87 @@ def check_kernels(torch, bt, dev, csr, results):
     return failures
 
 
+def check_gathered_kernels(torch, bt, dev, csr, results):
+    """Phase 3, second part: dense_tile and fused_gathered vs their plain
+    version at the shapes of banded_mesh_32k reorder plans."""
+    from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+    from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda
+    pipe = bt.BsmrSddmm(csr, bt.SddmmConfig(
+        alpha=0.3, delta=0.05, subpack_min_nnz=12, col_mode="reorder",
+        gathered_backend="fused"))
+    failures = []
+    for k in (128, 32):
+        A = torch.from_numpy(bt.make_dense(csr.rows, k, seed=1337)).to(dev)
+        Bt = torch.from_numpy(
+            bt.make_dense(k, csr.cols, seed=1338).T.copy()).to(dev)
+        t0 = time.perf_counter()
+        plan = bt.pack_tiles(csr, pipe.reorder(), pipe.config.replace(k=k))
+        dp = device_plan(plan, dev, emit="rphm")
+        say(f"[kernels] banded_mesh_32k reorder K={k} alpha=0.3 delta=0.05: "
+            f"T={plan.tile_panel.shape[0]} (real {plan.num_tiles}) "
+            f"Tp={plan.sp_panel.shape[0]} (real {plan.num_packed}) "
+            f"Tg={plan.g_panel.shape[0]} (real {plan.num_gathered}) "
+            f"E={plan.res_arow.shape[0]} host "
+            f"{time.perf_counter() - t0:.2f}s")
+        A_panels = A.index_select(0, dp.row_perm_padded).reshape(
+            plan.num_panels, plan.panel_height, k)
+        cases = (("dense_tile", dk.dense_tile, dk.dense_tile_plain,
+                  (A_panels, Bt, dp.tile_panel, dp.tile_src)),
+                 ("fused_gathered", dk.fused_gathered,
+                  dk.fused_gathered_plain,
+                  (A_panels, Bt, dp.g_panel, dp.g_cols)))
+        for name, kern, plain, args in cases:
+            for od in ("float32", "float16"):
+                dt = getattr(torch, od)
+                got = kern(*args, out_dtype=dt)
+                want = plain(*args, out_dtype=dt)
+                torch.cuda.synchronize()
+                max_abs, max_rel, ok = compare(torch, got, want, od)
+                ms, _ = time_cuda(lambda: kern(*args, out_dtype=dt),
+                                  iterations=20)
+                plain_ms, _ = time_cuda(lambda: plain(*args, out_dtype=dt),
+                                        iterations=20)
+                say(f"[kernels]   {name} K={k} {od} out={tuple(got.shape)}: "
+                    f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+                    f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms")
+                if not ok:
+                    failures.append(f"{name} K={k} {od}")
+                rec = results[name]
+                if od == "float32":
+                    rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
+                if (k, od) == (128, "float32"):
+                    rec.update(ms=ms, plain_ms=plain_ms)
+        del A_panels, dp
+    return failures
+
+
 def main_path(bt, dev, suite, results):
     """Phase 4: the user's entry point on the suite matrices."""
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     failures = []
-    for name, alpha, od in MAIN:
+    for name, alpha, delta, od, mode, gb, tiers, expect in MAIN:
         csr = suite[name]
-        cfg = bt.SddmmConfig(k=128, alpha=alpha, delta=0.002,
-                             subpack_min_nnz=12, out_dtype=od)
+        cfg = bt.SddmmConfig(k=128, alpha=alpha, delta=delta,
+                             subpack_min_nnz=12, out_dtype=od,
+                             col_mode=mode, gathered_backend=gb)
         A = bt.make_dense(csr.rows, 128, seed=1337)
         B = bt.make_dense(128, csr.cols, seed=1338)
-        dk.bsr_dense.launches = dk.subpack.launches = 0
+        for kname in KERNELS:
+            getattr(dk, kname).launches = 0
         t0 = time.perf_counter()
         log = bt.BsmrSddmm(csr, cfg, device=dev).benchmark(
-            A, B, validate=True, file=name)
+            A, B, validate=True, tier_times=tiers, file=name)
         wall = time.perf_counter() - t0
-        launches = {"bsr_dense": dk.bsr_dense.launches,
-                    "subpack": dk.subpack.launches}
+        launches = {kname: getattr(dk, kname).launches for kname in KERNELS}
         for kname, n in launches.items():
             results[kname]["launches"] += n
-        say(f"[main] {name} K=128 alpha={alpha} delta=0.002 {od}: "
+        tier_split = "".join(
+            f"; {key} {val}" for key, val in log.extras.items()
+            if key.startswith("tier_"))
+        say(f"[main] {name} K=128 {mode} gathered={gb} alpha={alpha} "
+            f"delta={delta} {od}: "
             f"check {log.check_result} (error rate {log.error_rate}); "
             f"sddmm_ms {log.sddmm_ms:.4f} ({log.gflops:.1f} GFLOPS), "
             f"sddmm_csr_ms {log.extras['sddmm_csr_ms']} "
@@ -193,33 +275,55 @@ def main_path(bt, dev, suite, results):
             f"residual nnz {log.residual_nnz}; reorder "
             f"{log.row_reordering_ms:.0f} ms, pack {log.pack_ms:.0f} ms, "
             f"wall {wall:.1f} s; launches {launches}; "
-            f"device {log.device}")
+            f"device {log.device}{tier_split}")
+        run = f"{name} {mode} {gb} {od}"
         if log.check_result != "pass":
-            failures.append(f"{name} {od}: check {log.check_result}")
-        for kname, n in launches.items():
-            if n <= 0:
-                failures.append(f"{name} {od}: {kname} never launched")
+            failures.append(f"{run}: check {log.check_result}")
+        if tiers and "tier_dense_ms" not in log.extras:
+            failures.append(f"{run}: no tier times")
+        for kname in expect:
+            if launches[kname] <= 0:
+                failures.append(f"{run}: {kname} never launched")
     return failures
+
+
+CLI_RUNS = ((["-a", "0.3", "-d", "0.002", "--validate"], ()),
+            (["-a", "0.3", "-d", "0.05", "--col-mode", "reorder",
+              "--evaluate", "--tier-times", "--reorder-cache", "--validate"],
+             ("[denseBlockGain", "[tier_dense_ms",
+              "[tier_overlap_efficiency")))
 
 
 def run_cli(bt, csr) -> list:
     """Phase 5: the console entry point on a suite matrix in a .mtx."""
+    failures = []
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "community_20k.mtx")
         bt.formats.save_mtx(path, csr)
-        cmd = [sys.executable, "-m", f"{PKG}.cli", "-f", path, "-k", "128",
-               "-a", "0.3", "-d", "0.002", "--validate"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                              timeout=600)
-    say(f"[cli] {' '.join(cmd[1:4])} ... --validate: exit "
-        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
-    for line in proc.stdout.splitlines():
-        if line.startswith(("[checkResults", "[bsmr_sddmm ", "[device")):
-            say(f"[cli]   {line}")
-    if proc.returncode != 0 or "[checkResults : pass]" not in proc.stdout:
-        return [f"cli exit {proc.returncode}: {proc.stderr[-2000:]}"]
-    return []
+        env = dict(os.environ, BSMR_CACHE_DIR=os.path.join(tmp, "cache"))
+        for flags, want in CLI_RUNS:
+            cmd = [sys.executable, "-m", f"{PKG}.cli", "-f", path, "-k",
+                   "128", *flags]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            say(f"[cli] -k 128 {' '.join(flags)}: exit {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            for line in proc.stdout.splitlines():
+                if line.startswith(("[checkResults", "[bsmr_sddmm ",
+                                    "[device", "[tier_") + want):
+                    say(f"[cli]   {line}")
+            if (proc.returncode != 0
+                    or "[checkResults : pass]" not in proc.stdout
+                    or not all(w in proc.stdout for w in want)):
+                failures.append(f"cli {' '.join(flags)}: exit "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        cache = env["BSMR_CACHE_DIR"]
+        cached = os.listdir(cache) if os.path.isdir(cache) else []
+        say(f"[cli] reorder cache entries: {cached}")
+        if not any(f.endswith(".npz") for f in cached):
+            failures.append("cli --reorder-cache wrote no cache entry")
+    return failures
 
 
 def main() -> int:
@@ -265,6 +369,8 @@ def main() -> int:
     dev = torch.device("cuda")
     failures = check_kernels(torch, bt, dev, suite["banded_mesh_32k"],
                              results)
+    failures += check_gathered_kernels(torch, bt, dev,
+                                       suite["banded_mesh_32k"], results)
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
     failures = main_path(bt, dev, suite, results)

@@ -1,12 +1,14 @@
 """The port's host layer against the JAX package's: formats, datasets,
-reorder, native clustering and pack_tiles give identical arrays for
-identical inputs (bit-identical TilePlans), and the port never imports jax.
+reorder (both column modes), native clustering, pack_tiles, the reorder
+cache and the reordering evaluation give identical arrays for identical
+inputs (bit-identical TilePlans), and the port never imports jax.
 
 Inputs are made with NumPy from fixed seeds and handed to both packages."""
 
 import dataclasses
 import filecmp
 import gzip
+import importlib
 import os
 import subprocess
 import sys
@@ -14,14 +16,18 @@ import sys
 import numpy as np
 import pytest
 
+import bsmr_sddmm_tpu.cache as jcache
 import bsmr_sddmm_tpu.datasets as jds
+import bsmr_sddmm_tpu.evaluate as jev
 import bsmr_sddmm_tpu.formats as jfm
 import bsmr_sddmm_tpu.native as jnative
 import bsmr_sddmm_tpu.pack as jpack
 import bsmr_sddmm_tpu.reorder as jre
 from bsmr_sddmm_tpu.config import SddmmConfig as JConfig
 
+import bsmr_sddmm_tpu_torch.cache as tcache
 import bsmr_sddmm_tpu_torch.datasets as tds
+import bsmr_sddmm_tpu_torch.evaluate as tev
 import bsmr_sddmm_tpu_torch.formats as tfm
 import bsmr_sddmm_tpu_torch.native as tnative
 import bsmr_sddmm_tpu_torch.pack as tpack
@@ -238,12 +244,21 @@ def test_reordering_identical(strategy, use_native, delta):
     assert_same(ref, port, skip=("row_time_ms", "col_time_ms"))
 
 
-def test_col_reordering_not_ported():
-    tcsr = tfm.random_mask(**TINY)
-    cfg = TConfig(**dict(BASE_CFG, col_mode="reorder"))
-    reord = tre.row_reordering(tcsr, 0.3, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tre.split_columns(tcsr, reord, cfg)
+@pytest.mark.parametrize("strategy", ["fast", "exact", "none"])
+@pytest.mark.parametrize("delta", [0.0, 0.3, 1.1])
+def test_col_reordering_identical(strategy, delta):
+    """col_mode="reorder": the per-panel column reordering of both
+    packages gives the same dense/sparse column arrays."""
+    jcsr, tcsr = both_masks(SMALL)
+    kw = dict(BASE_CFG, row_strategy=strategy, delta=delta,
+              col_mode="reorder")
+    ref = jre.bsmr(jcsr, JConfig(**kw))
+    port = tre.bsmr(tcsr, TConfig(**kw))
+    assert_same(ref, port, skip=("row_time_ms", "col_time_ms"))
+    if delta == 0.0:
+        assert port.dense_cols.size and not port.sparse_cols.size
+    if delta == 1.1:
+        assert not port.dense_cols.size
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +276,12 @@ PLAN_CASES = {
     "pernnz": dict(residual_mode="pernnz"),
     "ph32_k64": dict(panel_height=32, k=64),
     "unbucketed": dict(bucket_shapes=False),
+    "reorder": dict(col_mode="reorder"),
+    "reorder_delta_0": dict(col_mode="reorder", delta=0.0),
+    "reorder_delta_0.05": dict(col_mode="reorder", delta=0.05),
+    "reorder_delta_1.1": dict(col_mode="reorder", delta=1.1),
+    "reorder_pernnz": dict(col_mode="reorder", residual_mode="pernnz"),
+    "reorder_ph32_k64": dict(col_mode="reorder", panel_height=32, k=64),
 }
 
 
@@ -275,6 +296,12 @@ def test_plan_bit_identical(case):
         assert tplan.fat_group == 1
     if case == "subpack_0":
         assert tplan.num_packed == 0
+    if case.startswith("reorder"):
+        assert tplan.mode == "reorder" and tplan.fat_group == 1
+        assert tplan.tile_cblock is None and tplan.step_cblock is None
+        assert (tplan.tile_cols < tplan.cols).all()
+    if case == "reorder_delta_0.05":
+        assert tplan.num_tiles > 0 and tplan.num_packed > 0
 
 
 def test_plan_bit_identical_tiny():
@@ -286,6 +313,14 @@ def test_windowed_plan_bit_identical():
     jplan, tplan = both_plans(WIDE, WIDE_CFG)
     assert tplan.window_rows == 8192
     assert tplan.g_groups or tplan.res_groups
+    assert_same(jplan, tplan, skip=("pack_time_ms",))
+
+
+@pytest.mark.parametrize("spec,cfg_kw", [(TINY, BASE_CFG), (WIDE, WIDE_CFG)],
+                         ids=["tiny", "wide"])
+def test_reorder_plan_bit_identical(spec, cfg_kw):
+    jplan, tplan = both_plans(spec, dict(cfg_kw, col_mode="reorder"))
+    assert tplan.mode == "reorder"
     assert_same(jplan, tplan, skip=("pack_time_ms",))
 
 
@@ -307,6 +342,61 @@ def test_bucket_sizes_identical():
 
 
 # ---------------------------------------------------------------------------
+# reordering evaluation and the reorder cache
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("col_mode", ["bsr", "reorder"])
+def test_evaluate_reordering_identical(col_mode):
+    jcsr, tcsr = both_masks(SMALL)
+    kw = dict(BASE_CFG, col_mode=col_mode, delta=0.1)
+    ref = jev.evaluate_reordering(jcsr, JConfig(**kw))
+    port = tev.evaluate_reordering(tcsr, TConfig(**kw))
+    assert_same(ref, port)
+    assert port.as_extras() == ref.as_extras()
+    assert port.dense_block_gain == ref.dense_block_gain
+    assert port.dense_coverage == ref.dense_coverage
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_reorder_cache_shared(monkeypatch, tmp_path, writer):
+    """An entry that one package writes under BSMR_CACHE_DIR loads in the
+    other, with an identical row permutation."""
+    monkeypatch.setenv("BSMR_CACHE_DIR", str(tmp_path))
+    jcsr, tcsr = both_masks(SMALL)
+    jcfg, tcfg = JConfig(**BASE_CFG), TConfig(**BASE_CFG)
+    assert jcache._key(jcsr, 0.3, jcfg) == tcache._key(tcsr, 0.3, tcfg)
+    if writer == "jax":
+        stored = jcache.cached_row_reordering(jcsr, 0.3, jcfg)
+        loaded = tcache.load_reordering(tcsr, 0.3, tcfg)
+    else:
+        stored = tcache.cached_row_reordering(tcsr, 0.3, tcfg)
+        loaded = jcache.load_reordering(jcsr, 0.3, jcfg)
+    assert loaded is not None
+    assert len(list(tmp_path.glob("*.npz"))) == 1
+    np.testing.assert_array_equal(loaded.row_perm, stored.row_perm)
+    np.testing.assert_array_equal(loaded.cluster_ids, stored.cluster_ids)
+    assert loaded.num_clusters == stored.num_clusters
+
+
+def test_pipeline_reads_reorder_cache(monkeypatch, tmp_path):
+    """BsmrSddmm with reorder_cache loads a cached entry instead of
+    clustering again."""
+    tsddmm = importlib.import_module("bsmr_sddmm_tpu_torch.sddmm")
+    monkeypatch.setenv("BSMR_CACHE_DIR", str(tmp_path))
+    jcsr, tcsr = both_masks(TINY)
+    jcfg = JConfig(**dict(BASE_CFG, reorder_cache=True))
+    ref = jcache.cached_row_reordering(jcsr, jcfg.alpha, jcfg)
+
+    def no_clustering(*args, **kw):
+        raise AssertionError("clustered although the cache has the entry")
+    monkeypatch.setattr(tcache, "row_reordering", no_clustering)
+    monkeypatch.setattr(tsddmm, "row_reordering", no_clustering)
+    tcfg = TConfig(**dict(BASE_CFG, reorder_cache=True))
+    port = tsddmm.BsmrSddmm(tcsr, tcfg, device="cpu").reorder()
+    np.testing.assert_array_equal(port.row_perm, ref.row_perm)
+
+
+# ---------------------------------------------------------------------------
 # no jax in the port
 # ---------------------------------------------------------------------------
 
@@ -318,7 +408,8 @@ def test_port_never_imports_jax():
         "import bsmr_sddmm_tpu_torch, bsmr_sddmm_tpu_torch.cli, "
         "bsmr_sddmm_tpu_torch.interop, bsmr_sddmm_tpu_torch.datasets, "
         "bsmr_sddmm_tpu_torch.ops.dense_kernels, "
-        "bsmr_sddmm_tpu_torch.ops._build, bsmr_sddmm_tpu_torch.utils\n"
+        "bsmr_sddmm_tpu_torch.ops._build, bsmr_sddmm_tpu_torch.utils, "
+        "bsmr_sddmm_tpu_torch.cache, bsmr_sddmm_tpu_torch.evaluate\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'bsmr_sddmm_tpu.')) "
         "or m == 'bsmr_sddmm_tpu')\n"

@@ -71,6 +71,23 @@ def subpack_inputs(num_panels=5, ph=16, k=32, H=70, Tp=6, sw=32, seed=1):
     return A_panels, Bt2, sp_panel, sp_sub
 
 
+def gathered_inputs(num_panels=5, ph=16, k=32, n_cols=300, T=6, seed=2,
+                    out_of_range=False):
+    """A_panels, Bt, panel, cols (T, bw): column ids unsorted, repeated
+    (the last tile repeats one column, as pad tiles do) and, with
+    ``out_of_range``, one id -1 and one id N."""
+    rng = np.random.default_rng(seed)
+    A_panels = rng.random((num_panels, ph, k), dtype=np.float32) * 2
+    Bt = rng.random((n_cols, k), dtype=np.float32) * 2
+    panel = rng.integers(0, num_panels, T).astype(np.int32)
+    cols = rng.integers(0, n_cols, (T, BW)).astype(np.int32)
+    cols[0, 0] = n_cols - 1
+    cols[-1] = cols[-1, 0]
+    if out_of_range:
+        cols[0, 1], cols[T // 2, 5] = -1, n_cols
+    return A_panels, Bt, panel, cols
+
+
 def tensors(*arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
@@ -144,6 +161,49 @@ def test_subpack_plain_matches_subpack_kernel(precision, ph, k, sw):
     assert_matches(ref, got.numpy(), precision)
 
 
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("ph,k", [(16, 32), (32, 64)])
+def test_dense_tile_plain_matches_dense_tile_kernel(precision, ph, k):
+    """make_dense_tile_kernel takes B tiles gathered outside the kernel, as
+    the JAX body feeds it (jnp.take(Bt, tile_cols))."""
+    jnp, pd = pallas()
+    A_panels, Bt, tile_panel, tile_cols = gathered_inputs(ph=ph, k=k)
+    T = tile_panel.shape[0]
+    b_tiles = jnp.take(jnp.asarray(Bt), jnp.asarray(tile_cols.reshape(-1)),
+                       axis=0).reshape(T, BW, k)
+    ref = pd.make_dense_tile_kernel(
+        num_panels=A_panels.shape[0], ph=ph, bw=BW, k=k, chunk=T,
+        precision=precision, interpret=True)(
+            jnp.asarray(A_panels), b_tiles, jnp.asarray(tile_panel))
+    got = dk.dense_tile_plain(*tensors(A_panels, Bt, tile_panel, tile_cols))
+    assert_matches(ref, got.numpy(), precision)
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("ph,k", [(16, 32), (32, 64)])
+def test_fused_gathered_plain_matches_fused_kernel(precision, ph, k):
+    jnp, pd = pallas()
+    A_panels, Bt, g_panel, g_cols = gathered_inputs(ph=ph, k=k, seed=3)
+    ref = pd.make_fused_gathered_kernel(
+        num_panels=A_panels.shape[0], ph=ph, bw=BW, k=k,
+        precision=precision, interpret=True)(
+            jnp.asarray(A_panels), jnp.asarray(Bt), jnp.asarray(g_panel),
+            jnp.asarray(g_cols.reshape(-1)))
+    got = dk.fused_gathered_plain(*tensors(A_panels, Bt, g_panel, g_cols))
+    assert_matches(ref, got.numpy(), precision)
+
+
+def test_gathered_plain_reads_out_of_range_ids_as_zero():
+    A_panels, Bt, panel, cols = gathered_inputs(out_of_range=True)
+    got = dk.gathered_tile_plain(*tensors(A_panels, Bt, panel, cols))
+    n = Bt.shape[0]
+    Bt_zero = np.concatenate([Bt, np.zeros((1, Bt.shape[1]), np.float32)])
+    ids = np.where((cols >= 0) & (cols < n), cols, n)
+    want = np.einsum("tpk,tck->tpc", A_panels[panel], Bt_zero[ids])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert (got[0, :, 1] == 0).all() and (got[3, :, 5] == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' contract (CPU)
 # ---------------------------------------------------------------------------
@@ -164,6 +224,34 @@ def test_wrappers_take_plain_version_on_cpu(out_dtype):
     want = dk.subpack_plain(*args, subblock_width=32, out_dtype=out_dtype)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (dk.bsr_dense.launches, dk.subpack.launches) == before
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+def test_gathered_wrappers_take_plain_version_on_cpu(out_dtype):
+    before = (dk.dense_tile.launches, dk.fused_gathered.launches)
+    args = tensors(*gathered_inputs(out_of_range=True))
+    want = dk.gathered_tile_plain(*args, out_dtype=out_dtype)
+    for wrapper in (dk.dense_tile, dk.fused_gathered):
+        got = wrapper(*args, out_dtype=out_dtype)
+        assert got.dtype == out_dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (dk.dense_tile.launches, dk.fused_gathered.launches) == before
+
+
+def test_gathered_wrappers_reject_bad_inputs():
+    A, Bt, panel, cols = tensors(*gathered_inputs())
+    for wrapper in (dk.dense_tile, dk.fused_gathered):
+        with pytest.raises(ValueError, match="int32"):
+            wrapper(A, Bt, panel, cols.long())
+        with pytest.raises(ValueError, match=r"\(T, bw\)"):
+            wrapper(A, Bt, panel[:-1], cols)
+        with pytest.raises(ValueError, match=r"\(T, bw\)"):
+            wrapper(A, Bt, panel, cols.reshape(-1))
+        with pytest.raises(ValueError, match="float32"):
+            wrapper(A, Bt.half(), panel, cols)
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            wrapper(A.to("meta"), Bt.to("meta"), panel.to("meta"),
+                    cols.to("meta"))
 
 
 def test_wrappers_reject_bad_inputs():
@@ -254,6 +342,43 @@ def test_subpack_kernel_matches_plain(cuda, out_dtype, ph, k, sw):
     assert_kernel_close(got, want)
 
 
+GATHERED = {"dense_tile": (dk.dense_tile, dk.dense_tile_plain),
+            "fused_gathered": (dk.fused_gathered, dk.fused_gathered_plain)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GATHERED))
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("ph,k", [(32, 128), (32, 32), (16, 64), (64, 256)])
+def test_gathered_kernels_match_plain(cuda, name, out_dtype, ph, k):
+    """Ragged N (not a multiple of bw), unsorted and repeated column ids,
+    one id -1 and one id N."""
+    wrapper, plain = GATHERED[name]
+    args = tensors(*gathered_inputs(num_panels=40, ph=ph, k=k, n_cols=1000,
+                                    T=64, out_of_range=True), device=cuda)
+    before = wrapper.launches
+    got = wrapper(*args, out_dtype=out_dtype)
+    want = plain(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (64, ph, BW)
+    assert_kernel_close(got, want)
+    assert (got[0, :, 1] == 0).all() and (got[32, :, 5] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GATHERED))
+def test_gathered_zero_tiles_launch_nothing(cuda, name):
+    wrapper, _ = GATHERED[name]
+    A, Bt, _, _ = tensors(*gathered_inputs(), device=cuda)
+    panel = torch.zeros(0, dtype=torch.int32, device=cuda)
+    cols = torch.zeros((0, BW), dtype=torch.int32, device=cuda)
+    before = wrapper.launches
+    out = wrapper(A, Bt, panel, cols)
+    assert out.shape == (0, A.shape[1], BW)
+    assert wrapper.launches == before
+
+
 @pytest.mark.cuda
 def test_zero_tiles_launch_nothing(cuda):
     A, Bt, _, _ = tensors(*bsr_inputs(), device=cuda)
@@ -292,6 +417,31 @@ def test_body_on_cuda_matches_cpu(cuda, out_dtype):
         device_plan(plan, cuda)).cpu().numpy()
     assert dk.bsr_dense.launches > before[0]
     assert dk.subpack.launches > before[1]
+    want = make_sddmm_body(plan, cfg)(
+        torch.from_numpy(A), torch.from_numpy(Bt),
+        device_plan(plan, "cpu")).numpy()
+    assert check_data(want, got).passed
+    assert check_data(sddmm_ref(A, Bt.T, csr), got).passed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "float16"])
+def test_reorder_fused_body_on_cuda_matches_cpu(cuda, out_dtype):
+    """A reorder plan with the fused gathered tier: dense_tile, subpack and
+    fused_gathered on the card against the plain body on the CPU."""
+    csr = random_mask(**SMALL)
+    cfg = bt.SddmmConfig(**dict(BASE_CFG, out_dtype=out_dtype, delta=0.05,
+                                col_mode="reorder", gathered_backend="fused"))
+    plan = bt.pack_tiles(csr, bt.BsmrSddmm(csr, cfg).reorder(), cfg)
+    assert plan.num_tiles and plan.num_packed and plan.g_groups is None
+    A = bt.make_dense(csr.rows, cfg.k, seed=5)
+    Bt = bt.make_dense(csr.cols, cfg.k, seed=6)
+    kernels = (dk.dense_tile, dk.subpack, dk.fused_gathered)
+    before = [w.launches for w in kernels]
+    got = make_sddmm_body(plan, cfg)(
+        torch.from_numpy(A).to(cuda), torch.from_numpy(Bt).to(cuda),
+        device_plan(plan, cuda)).cpu().numpy()
+    assert all(w.launches > b for w, b in zip(kernels, before))
     want = make_sddmm_body(plan, cfg)(
         torch.from_numpy(A), torch.from_numpy(Bt),
         device_plan(plan, "cpu")).numpy()

@@ -3,11 +3,16 @@
 One TilePlan, packed by the JAX package and carried across with
 ``interop.plan_from_reference``, goes to both bodies with the same A and
 Bt (NumPy, fixed seeds). The JAX body runs as its tests run it on the CPU
-(``backend="xla"``). Tiers are compared on real slots only (scatter index
-< nnz) at rtol 1e-5 / atol 1e-5: both sides are fp32 and differ only in
-the order of summation. fp16 output is compared at the check_data tolerance
-(each side rounds once to fp16). Then the whole slice: BsmrSddmm.benchmark,
-sddmm() and the CLI. The body on the card is tested in
+(``backend="xla"``; with ``gathered_backend="fused"`` its gathered tier is
+the Pallas kernel in interpret mode). Tiers are compared on real slots only
+(scatter index < nnz) at rtol 1e-5 / atol 1e-5: both sides are fp32 and
+differ only in the order of summation, so the fused cases run the Pallas
+kernel at ``matmul_precision="highest"``; at its default bf16x3 split they
+are compared at the check_data tolerance (abs 1e-5 OR rel 1e-3). fp16
+output is compared at the check_data tolerance (each side rounds once to
+fp16). Then the whole slice: BsmrSddmm.benchmark (``tier_times``
+included), sddmm() and the CLI (``--col-mode reorder``, ``--evaluate``,
+``--tier-times``, ``--reorder-cache``). The body on the card is tested in
 tests/test_torch_kernels.py."""
 
 import jax.numpy as jnp
@@ -27,6 +32,7 @@ from bsmr_sddmm_tpu.utils.checkdata import check_data
 import bsmr_sddmm_tpu_torch as bt
 from bsmr_sddmm_tpu_torch import cli
 from bsmr_sddmm_tpu_torch.formats import random_mask, save_mtx
+from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
 from bsmr_sddmm_tpu_torch.interop import (config_from_reference,
                                           plan_from_reference)
 from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
@@ -86,13 +92,28 @@ BODY_CASES = {
     "subpack_0": (SMALL, dict(subpack_min_nnz=0)),
     "ph32_k64": (SMALL, dict(panel_height=32, k=64)),
     "windowed": (WIDE, {}),
+    "reorder": (SMALL, dict(col_mode="reorder")),
+    "reorder_delta_0": (SMALL, dict(col_mode="reorder", delta=0.0)),
+    "reorder_delta_0.05": (SMALL, dict(col_mode="reorder", delta=0.05)),
+    "reorder_delta_1.1": (SMALL, dict(col_mode="reorder", delta=1.1)),
+    "fused": (SMALL, dict(gathered_backend="fused",
+                          matmul_precision="highest")),
+    "reorder_fused": (SMALL, dict(col_mode="reorder", delta=0.1,
+                                  gathered_backend="fused",
+                                  matmul_precision="highest")),
+    "windowed_fused": (WIDE, dict(gathered_backend="fused")),
+    "windowed_reorder": (WIDE, dict(col_mode="reorder", delta=0.5)),
 }
+
+
+def body_cfg(case):
+    spec, extra = BODY_CASES[case]
+    return spec, dict(WIDE_CFG if spec is WIDE else BASE_CFG, **extra)
 
 
 @pytest.mark.parametrize("case", sorted(BODY_CASES))
 def test_body_matches_reference_tier_by_tier(case):
-    spec, extra = BODY_CASES[case]
-    cfg_kw = dict(WIDE_CFG if case == "windowed" else BASE_CFG, **extra)
+    spec, cfg_kw = body_cfg(case)
     _, jcfg, jplan, tcfg, tplan = reference_case(spec, cfg_kw)
     A, Bt = operands(spec["rows"], spec["cols"], tcfg.k)
     ref = jax_body(jplan, jcfg, A, Bt, "rphm")
@@ -107,12 +128,56 @@ def test_body_matches_reference_tier_by_tier(case):
                                    err_msg=tier)
     if case == "windowed":
         assert tplan.g_groups or tplan.res_groups
+    if case.startswith("reorder"):
+        assert tplan.mode == "reorder"
+    if case in ("reorder", "reorder_fused"):
+        assert tplan.num_tiles and tplan.num_packed and tplan.num_gathered
 
 
-@pytest.mark.parametrize("case", ["default", "delta_1.1", "windowed"])
+def launch_counts():
+    return {name: getattr(dk, name).launches for name in
+            ("bsr_dense", "subpack", "dense_tile", "fused_gathered")}
+
+
+@pytest.mark.parametrize("case", ["fused", "reorder_fused", "windowed_fused"])
+def test_fused_arm_follows_reference(case, monkeypatch):
+    """The gathered tier takes fused_gathered exactly where the JAX body
+    takes its fused Pallas arm: not on windowed plans (g_groups)."""
+    spec, cfg_kw = body_cfg(case)
+    _, _, _, tcfg, tplan = reference_case(spec, cfg_kw)
+    calls = []
+    real = dk.fused_gathered
+    monkeypatch.setattr(dk, "fused_gathered",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    A, Bt = operands(spec["rows"], spec["cols"], tcfg.k)
+    make_sddmm_body(tplan, tcfg, only_tier="gathered")(
+        torch.from_numpy(A), torch.from_numpy(Bt),
+        device_plan(tplan, "cpu", emit="rphm"))
+    windowed = tplan.g_groups is not None
+    assert windowed == (case == "windowed_fused")
+    assert len(calls) == (0 if windowed else 1)
+
+
+@pytest.mark.parametrize("case", ["fused", "reorder_fused"])
+def test_fused_body_at_default_precision(case):
+    """At the JAX default bf16x3 split the fused Pallas kernel is not an
+    exact fp32 product: compared at the check_data tolerance."""
+    spec, cfg_kw = body_cfg(case)
+    cfg_kw = dict(cfg_kw, matmul_precision="bf16x3")
+    jcsr, jcfg, jplan, tcfg, tplan = reference_case(spec, cfg_kw)
+    A, Bt = operands(spec["rows"], spec["cols"], tcfg.k)
+    ref = jax_body(jplan, jcfg, A, Bt, "csr")
+    got = make_sddmm_body(tplan, tcfg, emit="csr")(
+        torch.from_numpy(A), torch.from_numpy(Bt),
+        device_plan(tplan, "cpu")).numpy()
+    res = check_data(ref, got)
+    assert res.passed, str(res)
+
+
+@pytest.mark.parametrize("case", ["default", "delta_1.1", "windowed",
+                                  "reorder", "reorder_fused"])
 def test_body_csr_matches_reference(case):
-    spec, extra = BODY_CASES[case]
-    cfg_kw = dict(WIDE_CFG if case == "windowed" else BASE_CFG, **extra)
+    spec, cfg_kw = body_cfg(case)
     jcsr, jcfg, jplan, tcfg, tplan = reference_case(spec, cfg_kw)
     A, Bt = operands(spec["rows"], spec["cols"], tcfg.k)
     ref = jax_body(jplan, jcfg, A, Bt, "csr")
@@ -137,8 +202,25 @@ def test_body_fp16_matches_reference(delta):
     assert res.passed, str(res)
 
 
-def test_only_tier_and_backends_agree():
-    _, _, _, tcfg, tplan = reference_case(SMALL, BASE_CFG)
+@pytest.mark.parametrize("delta", [0.0, 0.3, 1.1])
+def test_reorder_body_fp16_matches_reference(delta):
+    cfg_kw = dict(BASE_CFG, delta=delta, out_dtype="float16",
+                  col_mode="reorder")
+    _, jcfg, jplan, tcfg, tplan = reference_case(SMALL, cfg_kw)
+    A, Bt = operands(SMALL["rows"], SMALL["cols"], tcfg.k)
+    ref = jax_body(jplan, jcfg, A, Bt, "csr")
+    got = make_sddmm_body(tplan, tcfg, emit="csr")(
+        torch.from_numpy(A), torch.from_numpy(Bt),
+        device_plan(tplan, "cpu")).numpy()
+    assert got.dtype == np.float16 and ref.dtype == np.float16
+    res = check_data(ref, got)
+    assert res.passed, str(res)
+
+
+@pytest.mark.parametrize("case", ["default", "reorder_fused"])
+def test_only_tier_and_backends_agree(case):
+    spec, cfg_kw = body_cfg(case)
+    _, _, _, tcfg, tplan = reference_case(spec, cfg_kw)
     A, Bt = operands(SMALL["rows"], SMALL["cols"], tcfg.k)
     A, Bt = torch.from_numpy(A), torch.from_numpy(Bt)
     dplan = device_plan(tplan, "cpu", emit="rphm")
@@ -193,8 +275,40 @@ def test_benchmark_passes_and_matches_reference_log():
     assert rec["File"] == "small" and rec["checkResults"] == "pass"
 
 
+TIER_KEYS = ("tier_dense_ms", "tier_packed_ms", "tier_gathered_ms",
+             "tier_residual_ms", "tier_overlap_efficiency")
+
+
+@pytest.mark.parametrize("kw", [{}, dict(col_mode="reorder", delta=0.1,
+                                         gathered_backend="fused")],
+                         ids=["bsr", "reorder_fused"])
+def test_benchmark_tier_times_matches_reference_keys(kw):
+    cfg_kw = dict(BASE_CFG, num_iterations=1, **kw)
+    jcsr, tcsr = j_random_mask(**SMALL), random_mask(**SMALL)
+    A = bt.make_dense(tcsr.rows, 32, seed=1337)
+    B = bt.make_dense(32, tcsr.cols, seed=1338)
+    before = launch_counts()
+    log = bt.BsmrSddmm(tcsr, bt.SddmmConfig(**cfg_kw), device="cpu"
+                       ).benchmark(A, B, validate=True, tier_times=True)
+    ref = JBsmrSddmm(jcsr, JConfig(**cfg_kw)).benchmark(
+        A, B, validate=True, tier_times=True)
+    assert log.check_result == "pass"
+    assert launch_counts() == before     # CPU tensors launch no kernel
+    port_keys = [k for k in log.extras if k.startswith("tier_")]
+    ref_keys = [k for k in ref.extras if k.startswith("tier_")]
+    assert port_keys == ref_keys == list(TIER_KEYS)
+    assert all(float(log.extras[k]) > 0 for k in TIER_KEYS)
+    for name in ("num_dense_blocks", "num_packed_blocks",
+                 "num_gathered_blocks", "dense_nnz", "residual_nnz"):
+        assert getattr(log, name) == getattr(ref, name), name
+
+
 @pytest.mark.parametrize("kw", [{}, dict(delta=0.0, out_dtype="float16"),
-                                dict(delta=1.1, dense_fat_group=1)])
+                                dict(delta=1.1, dense_fat_group=1),
+                                dict(col_mode="reorder", delta=0.1),
+                                dict(col_mode="reorder", delta=0.1,
+                                     gathered_backend="fused",
+                                     matmul_precision="highest")])
 def test_sddmm_matches_reference(kw):
     cfg_kw = dict(BASE_CFG, **kw)
     jcsr, tcsr = j_random_mask(**SMALL), random_mask(**SMALL)
@@ -232,25 +346,16 @@ def test_no_cuda_needs_explicit_cpu(monkeypatch):
         bt.BsmrSddmm(tcsr, bt.SddmmConfig(**BASE_CFG)).run(A, B)
 
 
-@pytest.mark.parametrize("call", ["delta_auto", "alpha_auto", "dense",
-                                  "tier_times", "reorder_cache",
-                                  "col_mode", "fused"])
+@pytest.mark.parametrize("call", ["delta_auto", "alpha_auto", "dense"])
 def test_unported_features_raise(call):
     tcsr = random_mask(**TINY)
     A = bt.make_dense(tcsr.rows, 32)
     B = bt.make_dense(32, tcsr.cols)
     cfg = bt.SddmmConfig(**BASE_CFG)
+    kw = {"delta_auto": dict(delta="auto"),
+          "alpha_auto": dict(alpha="auto", delta="auto"),
+          "dense": dict(delta="dense")}[call]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "fused":
-            bt.SddmmConfig(gathered_backend="fused")
-        kw = {"delta_auto": dict(delta="auto"),
-              "alpha_auto": dict(alpha="auto", delta="auto"),
-              "dense": dict(delta="dense"),
-              "tier_times": dict(tier_times=True)}.get(call, {})
-        if call == "reorder_cache":
-            cfg = cfg.replace(reorder_cache=True)
-        if call == "col_mode":
-            cfg = cfg.replace(col_mode="reorder")
         bt.BsmrSddmm(tcsr, cfg, device="cpu").benchmark(A, B, **kw)
 
 
@@ -268,10 +373,31 @@ def test_cli_validates(tmp_path, capsys):
     assert (logs / "BSMR_k_32_a_0.3_d_0.3.log").exists()
 
 
+def test_cli_reorder_evaluate_tier_times_cache(tmp_path, capsys,
+                                              monkeypatch):
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("BSMR_CACHE_DIR", str(cache))
+    tcsr = random_mask(**SMALL)
+    path = str(tmp_path / "small.mtx")
+    save_mtx(path, tcsr)
+    argv = ["-f", path, "-k", "32", "-a", "0.3", "-d", "0.1",
+            "--panel-height", "16", "--iterations", "1", "--device", "cpu",
+            "--col-mode", "reorder", "--evaluate", "--tier-times",
+            "--reorder-cache", "--validate"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "[checkResults : pass]" in out
+    rec = parse_log_text(out)[-1]
+    for key in ("denseBlockGain", "denseCoverage", "numDenseBlocksOriginal",
+                "tier_dense_ms", "tier_overlap_efficiency"):
+        assert key in rec, key
+    assert len(list(cache.glob("*.npz"))) == 1
+    assert cli.main(argv) == 0                  # second run: cache hit
+    assert "[checkResults : pass]" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("flag", [["--auto-delta"], ["--auto-alpha"],
-                                  ["--refine-top", "3"], ["--tier-times"],
-                                  ["--evaluate"], ["--reorder-cache"],
-                                  ["--col-mode", "reorder"]])
+                                  ["--refine-top", "3"]])
 def test_cli_unported_flags_exit_nonzero(tmp_path, capsys, flag):
     path = str(tmp_path / "tiny.mtx")
     save_mtx(path, random_mask(**TINY))
