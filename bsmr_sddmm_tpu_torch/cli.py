@@ -2,9 +2,8 @@
 package's ``bsmr-sddmm`` (CUDA original ./BSMR-sddmm, src/main.cu:6-42,
 include/Options.hpp:49-76): `-f` matrix file, `-k` K, `-a` alpha, `-d`
 delta, `-t` test mode, `-l` log dir, plus --backend, --panel-height,
---col-mode, --validate, --evaluate, --tier-times, --reorder-cache and
---device. The autotune flags, whose feature is not ported yet, exit with
-status 2 and say so."""
+--col-mode, --validate, --evaluate, --tier-times, --reorder-cache, the
+autotune flags --auto-delta, --auto-alpha and --refine-top, and --device."""
 
 from __future__ import annotations
 
@@ -64,30 +63,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="measure and log the per-tier time split "
                         "(dense/packed/gathered/residual ms + overlap "
                         "efficiency)")
-    # flags of the JAX package whose features are not ported yet
     p.add_argument("--auto-delta", action="store_true",
-                   help="not yet ported")
+                   help="pick delta per matrix from the tier cost model "
+                        "instead of -d (the dense fallback competes)")
     p.add_argument("--auto-alpha", action="store_true",
-                   help="not yet ported")
+                   help="also put alpha in the autotuner's choice set "
+                        "(prices the full alpha x delta x subpack grid; "
+                        "implies --auto-delta)")
     p.add_argument("--refine-top", type=int, default=0,
-                   help="not yet ported")
+                   help="with --auto-alpha: re-time the N best-priced "
+                        "plans on the card and pick the measured argmin")
     return p
-
-
-def _unported(args) -> list:
-    flags = [("--auto-delta", args.auto_delta),
-             ("--auto-alpha", args.auto_alpha),
-             ("--refine-top", args.refine_top)]
-    return [name for name, on in flags if on]
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    unported = _unported(args)
-    if unported:
-        print(f"bsmr-sddmm-torch: {', '.join(unported)}: not yet ported "
-              "(see ROADMAP.md)", file=sys.stderr)
-        return 2
     from bsmr_sddmm_tpu_torch.config import (SWEEP_ALPHAS, SWEEP_DELTAS,
                                              SWEEP_KS, SddmmConfig)
     from bsmr_sddmm_tpu_torch.formats import load_matrix, make_dense
@@ -108,7 +98,8 @@ def main(argv=None) -> int:
                       subblock_width=args.subblock_width,
                       out_dtype=args.out_dtype,
                       reorder_cache=args.reorder_cache,
-                      num_iterations=args.iterations)
+                      num_iterations=args.iterations,
+                      autotune_refine_top=args.refine_top)
     pipe = BsmrSddmm(csr, cfg, device=args.device)
 
     if args.log_dir:
@@ -124,14 +115,19 @@ def main(argv=None) -> int:
     if not args.test_mode:
         A = make_dense(csr.rows, args.k, seed=1337)
         B = make_dense(args.k, csr.cols, seed=1338)
-        log = pipe.benchmark(A, B, validate=args.validate,
+        delta = "auto" if (args.auto_delta or args.auto_alpha) else None
+        alpha = "auto" if args.auto_alpha else None
+        log = pipe.benchmark(A, B, alpha=alpha, delta=delta,
+                             validate=args.validate,
                              time_csr_emit=not args.fast_bench,
                              tier_times=args.tier_times, file=name)
         if args.evaluate:
             from bsmr_sddmm_tpu_torch.evaluate import evaluate_reordering
             ev = evaluate_reordering(csr, cfg.replace(delta=log.delta))
             log.extras.update(ev.as_extras())
-        emit(log, f"BSMR_k_{args.k}_a_{args.alpha}_d_{args.delta}")
+        tag_a = "auto" if args.auto_alpha else args.alpha
+        tag_d = "auto" if delta == "auto" else args.delta
+        emit(log, f"BSMR_k_{args.k}_a_{tag_a}_d_{tag_d}")
         return 0 if (not args.validate or log.check_result == "pass") else 1
 
     # test mode: sweep alpha x delta x K, row reordering reused per alpha

@@ -141,8 +141,9 @@ class SddmmConfig:
 
     # --- benchmark --------------------------------------------------------
     num_iterations: int = 10     # timing iterations (original Options.hpp:39)
-    # Measured autotune refinement of the JAX package. Autotune is not
-    # ported yet; not read.
+    # alpha="auto": re-time this many of the best-priced plans on the card
+    # and pick the measured argmin (autotune.choose_config); 0 or 1 keeps
+    # the cost model's pick.
     autotune_refine_top: int = 0
 
     def __post_init__(self) -> None:

@@ -2,8 +2,10 @@
 
 The CUDA original times with CUDA events averaged over ``num_iterations``
 (include/CudaTimeCalculator.cuh:14-54, src/sddmmKernel.cu:2561-2659), and so
-does :func:`time_cuda`. :func:`time_host` is the same loop on the host clock
-for CPU tensors; its numbers are CPU times and are never device metrics.
+does :func:`time_cuda`. :func:`time_cuda_graph` times the replay of a CUDA
+graph of one call, for calls whose device work is shorter than their host
+enqueue. :func:`time_host` is the same loop on the host clock for CPU
+tensors; its numbers are CPU times and are never device metrics.
 """
 
 from __future__ import annotations
@@ -32,6 +34,45 @@ def time_cuda(fn: Callable, *args, iterations: int = 10) -> Tuple[float, object]
     end.record(stream)
     end.synchronize()
     return start.elapsed_time(end) / max(iterations, 1), out
+
+
+#: seconds of graph replays before a graph is timed
+GRAPH_WARMUP_S = 0.2
+#: rounds of timed replays; time_cuda_graph returns their median
+GRAPH_ROUNDS = 5
+
+
+def time_cuda_graph(fn: Callable, *args,
+                    iterations: int = 50) -> Tuple[float, object]:
+    """Milliseconds per replay of a CUDA graph captured from one call of
+    ``fn(*args)``: the median over ``GRAPH_ROUNDS`` rounds of the mean of
+    ``iterations`` back-to-back replays; and that call's result.
+
+    A replay is one host launch for the whole call, so this is the call's
+    device time even where ``time_cuda`` would measure the host enqueueing
+    its ops one by one (a lone tier of a small plan). ``fn`` must be
+    capturable: every op on the current stream, no host synchronisation.
+    The graph replays for ``GRAPH_WARMUP_S`` seconds first, so that the
+    card's clocks, low after host-only work, are up when the timing
+    starts; the median drops a round that still caught them low."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_cuda_graph needs a CUDA device")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)                   # lazy kernel build, allocator warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    end = time.perf_counter() + GRAPH_WARMUP_S
+    while time.perf_counter() < end:
+        for _ in range(iterations):
+            graph.replay()
+        torch.cuda.synchronize()
+    times = sorted(time_cuda(graph.replay, iterations=iterations)[0]
+                   for _ in range(GRAPH_ROUNDS))
+    return times[len(times) // 2], out
 
 
 def time_host(fn: Callable, *args, iterations: int = 10) -> Tuple[float, object]:

@@ -19,10 +19,27 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    tier_times), and the bsr path with the fused gathered tier. Every run
    must pass check_data against the fp64 oracle, and the launch counters
    of the kernels it runs, set to 0 just before it, must rise during it;
-5. CLI: python -m bsmr_sddmm_tpu_torch.cli -f <suite matrix .mtx> -k 128
-   -a 0.3 -d 0.002 --validate exits 0, and so does the run with
+5. autotune: on banded_mesh_32k and community_20k at K=128, subpack 12,
+   BsmrSddmm.choose(alpha="auto", refine_top=4) priced with V5E_COSTS: the
+   pick of its estimates, each candidate's measured ms and the measured
+   pick; then benchmark(alpha="auto", delta="auto", validate=True), each
+   pick's sddmm_ms beside the fixed arm's of phase 4;
+6. calibrate: autotune.calibrate() on the card (BSMR_CACHE_DIR in a
+   temporary directory), each point timed twice, the table held to its
+   points (the byte-bound tiers' slopes above 0) and printed key by key
+   next to V5E_COSTS, and both matrices re-priced with it;
+7. dense: the dense fallback (delta="dense") and the best tiled plan
+   priced with V5E_COSTS, at its (delta, subpack), on
+   datasets.uniform(4096, 350_000) at K=128 with validate=True, and the
+   cost model's choice there and on a blocky mask;
+8. CLI: python -m bsmr_sddmm_tpu_torch.cli -f <suite matrix .mtx> -k 128
+   -a 0.3 -d 0.002 --validate exits 0, and so do the run with
    --col-mode reorder -d 0.05 --evaluate --tier-times --reorder-cache
-   (BSMR_CACHE_DIR in a temporary directory).
+   (BSMR_CACHE_DIR in a temporary directory) and the run with --auto-alpha
+   --refine-top 3, which writes the BSMR_k_128_a_auto_d_auto log.
+
+Every phase that runs the pipeline sets the launch counters to 0 just before
+it and requires a launch of each kernel its plans use just after.
 
 The last lines are the nvidia-smi line, a JSON line with one record per
 kernel, and {"ok": true, "device": {...}}. Any failure, or no CUDA device,
@@ -32,6 +49,7 @@ exits non-zero before them. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -240,9 +258,30 @@ def check_gathered_kernels(torch, bt, dev, csr, results):
     return failures
 
 
-def main_path(bt, dev, suite, results):
-    """Phase 4: the user's entry point on the suite matrices."""
+def zero_launches():
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+    for kname in KERNELS:
+        getattr(dk, kname).launches = 0
+
+
+def read_launches(results):
+    """The counters since zero_launches(), added to the kernels line."""
+    from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+    launches = {kname: getattr(dk, kname).launches for kname in KERNELS}
+    for kname, n in launches.items():
+        results[kname]["launches"] += n
+    return launches
+
+
+def plan_kernels(log):
+    """The hand kernels a bsr-mode run's plan needs, from its RunLog."""
+    return (("bsr_dense",) if log.num_dense_blocks else ()) + \
+        (("subpack",) if log.num_packed_blocks else ())
+
+
+def main_path(bt, dev, suite, results, picks):
+    """Phase 4: the user's entry point on the suite matrices. The arm and
+    sddmm_ms of each matrix's fp32 bsr run go into ``picks``."""
     failures = []
     for name, alpha, delta, od, mode, gb, tiers, expect in MAIN:
         csr = suite[name]
@@ -251,15 +290,14 @@ def main_path(bt, dev, suite, results):
                              col_mode=mode, gathered_backend=gb)
         A = bt.make_dense(csr.rows, 128, seed=1337)
         B = bt.make_dense(128, csr.cols, seed=1338)
-        for kname in KERNELS:
-            getattr(dk, kname).launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         log = bt.BsmrSddmm(csr, cfg, device=dev).benchmark(
             A, B, validate=True, tier_times=tiers, file=name)
         wall = time.perf_counter() - t0
-        launches = {kname: getattr(dk, kname).launches for kname in KERNELS}
-        for kname, n in launches.items():
-            results[kname]["launches"] += n
+        launches = read_launches(results)
+        if (mode, gb, od) == ("bsr", "xla", "float32"):
+            picks[name] = {"fixed arm": (alpha, delta, 12, log.sddmm_ms)}
         tier_split = "".join(
             f"; {key} {val}" for key, val in log.extras.items()
             if key.startswith("tier_"))
@@ -291,17 +329,22 @@ CLI_RUNS = ((["-a", "0.3", "-d", "0.002", "--validate"], ()),
             (["-a", "0.3", "-d", "0.05", "--col-mode", "reorder",
               "--evaluate", "--tier-times", "--reorder-cache", "--validate"],
              ("[denseBlockGain", "[tier_dense_ms",
-              "[tier_overlap_efficiency")))
+              "[tier_overlap_efficiency")),
+            (["--auto-alpha", "--refine-top", "3", "--validate", "-l",
+              "{logs}"], ("[alpha", "[delta")))
+AUTO_LOG = "BSMR_k_128_a_auto_d_auto.log"
 
 
 def run_cli(bt, csr) -> list:
-    """Phase 5: the console entry point on a suite matrix in a .mtx."""
+    """Phase 8: the console entry point on a suite matrix in a .mtx."""
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "community_20k.mtx")
         bt.formats.save_mtx(path, csr)
         env = dict(os.environ, BSMR_CACHE_DIR=os.path.join(tmp, "cache"))
+        logs = os.path.join(tmp, "logs")
         for flags, want in CLI_RUNS:
+            flags = [f.format(logs=logs) for f in flags]
             cmd = [sys.executable, "-m", f"{PKG}.cli", "-f", path, "-k",
                    "128", *flags]
             t0 = time.perf_counter()
@@ -323,7 +366,283 @@ def run_cli(bt, csr) -> list:
         say(f"[cli] reorder cache entries: {cached}")
         if not any(f.endswith(".npz") for f in cached):
             failures.append("cli --reorder-cache wrote no cache entry")
+        written = os.listdir(logs) if os.path.isdir(logs) else []
+        say(f"[cli] logs: {written}")
+        if AUTO_LOG not in written:
+            failures.append(f"cli --auto-alpha wrote no {AUTO_LOG}")
     return failures
+
+
+AUTOTUNE = ("banded_mesh_32k", "community_20k")
+
+
+def run_arm(bt, pipe, results, name, tag, **kw):
+    """pipe.benchmark(validate=True, **kw) at K=128 with the counters set
+    to 0 just before it and read just after: (log, failures)."""
+    csr = pipe.csr
+    A = bt.make_dense(csr.rows, 128, seed=1337)
+    B = bt.make_dense(128, csr.cols, seed=1338)
+    zero_launches()
+    t0 = time.perf_counter()
+    log = pipe.benchmark(A, B, validate=True, file=name, **kw)
+    wall = time.perf_counter() - t0
+    launches = read_launches(results)
+    say(f"[{tag}] {name} benchmark({', '.join(f'{k}={v}' for k, v in kw.items())}"
+        f"): alpha={log.alpha} delta={log.delta} subpack="
+        f"{'auto' if kw.get('delta') == 'auto' else pipe.config.subpack_min_nnz} "
+        f"{log.extras.get('strategy', 'tiled')}: check {log.check_result}; "
+        f"sddmm_ms {log.sddmm_ms:.4f} ({log.gflops:.1f} GFLOPS); tiles dense "
+        f"{log.num_dense_blocks} packed {log.num_packed_blocks} gathered "
+        f"{log.num_gathered_blocks} residual nnz {log.residual_nnz}; wall "
+        f"{wall:.1f} s; launches {launches}")
+    failures = []
+    if log.check_result != "pass":
+        failures.append(f"{tag} {name} {kw}: check {log.check_result}")
+    for kname in plan_kernels(log):
+        if launches[kname] <= 0:
+            failures.append(f"{tag} {name} {kw}: {kname} never launched")
+    return log, failures
+
+
+def run_pick(bt, dev, csr, results, name, tag, alpha, delta, subpack,
+             use_dense):
+    """Benchmark a picked arm as a fixed arm (no second pricing)."""
+    pipe = bt.BsmrSddmm(csr, bt.SddmmConfig(k=128, subpack_min_nnz=subpack),
+                        device=dev)
+    if use_dense:
+        return run_arm(bt, pipe, results, name, tag, delta="dense")
+    return run_arm(bt, pipe, results, name, tag, alpha=alpha, delta=delta)
+
+
+def estimate_pick(choice):
+    """The pick of a ConfigChoice's estimates alone: its table holds every
+    arm's estimate beside the refine's ("measured", ...) times, so this is
+    what choose() without refine_top returns. ((alpha, delta, subpack),
+    estimate ms, use_dense)."""
+    arms = {key: ms for key, ms in choice.candidates.items()
+            if isinstance(key, tuple) and key[0] != "measured"}
+    key = min(arms, key=arms.get)
+    return key, arms[key], choice.candidates.get("dense", math.inf) < arms[key]
+
+
+def autotune_phase(bt, dev, suite, results, picks):
+    """Phase 5: the autotuner's picks on the card, priced with V5E_COSTS
+    and measured (refine_top=4), each run by benchmark(validate=True).
+    Fills picks[matrix] with each pick's label and sddmm_ms."""
+    from bsmr_sddmm_tpu_torch import autotune
+    if autotune.current_costs() is not autotune.V5E_COSTS:
+        return ["autotune: the cost table in effect is not V5E_COSTS"]
+    failures = []
+    for name in AUTOTUNE:
+        csr = suite[name]
+        cfg = bt.SddmmConfig(k=128, subpack_min_nnz=12)
+        pipe = bt.BsmrSddmm(csr, cfg, device=dev)
+        t0 = time.perf_counter()
+        ref = pipe.choose(alpha="auto", refine_top=4)
+        wall = time.perf_counter() - t0
+        (alpha, delta, sub), est_ms, use_dense = estimate_pick(ref)
+        say(f"[autotune] {name} K=128 V5E_COSTS pick: alpha={alpha} "
+            f"delta={delta} subpack={sub} estimate {est_ms:.4f} ms (dense "
+            f"arm {ref.candidates['dense']:.4f} ms, use_dense={use_dense})")
+        log, found = run_pick(bt, dev, csr, results, name, "autotune",
+                              alpha, delta, sub, use_dense)
+        failures += found
+        picks[name]["V5E_COSTS pick"] = (alpha, delta, sub, log.sddmm_ms)
+        measured = {key[1:]: ms for key, ms in ref.candidates.items()
+                    if isinstance(key, tuple) and key[0] == "measured"}
+        for key, ms in sorted(measured.items(), key=lambda kv: kv[1]):
+            say(f"[autotune]   measured (alpha, delta, subpack)={key}: "
+                f"{ms:.4f} ms (estimate {ref.candidates[key]:.4f} ms)")
+        say(f"[autotune] {name} measured pick: alpha={ref.alpha} "
+            f"delta={ref.delta} subpack={ref.subpack} "
+            f"{ref.estimated_ms:.4f} ms, use_dense={ref.use_dense}; "
+            f"{len(ref.candidates) - len(measured)} arms priced and "
+            f"{len(measured)} re-timed in {wall:.1f} s")
+        if len(measured) < 2:
+            failures.append(f"{name}: {len(measured)} measured candidates")
+        # the user's call: benchmark() runs its own measured choice
+        pipe.config = cfg.replace(autotune_refine_top=4)
+        log, found = run_arm(bt, pipe, results, name, "autotune",
+                             alpha="auto", delta="auto")
+        failures += found
+        picks[name]["measured pick (auto)"] = (log.alpha, log.delta, "-",
+                                               log.sddmm_ms)
+    return failures
+
+
+#: calibrate()'s tiers in the order it times them, and the line each fits
+CALIBRATED_TIERS = (("dense", "dense_floor"), ("packed", "packed"),
+                    ("gathered", "gathered"), ("residual", "pernnz"))
+#: the tiers whose bytes grow with K: the fitted slope must be above 0
+#: (the per-nnz residual is descriptor-bound, V5E_COSTS' own slope is 0)
+BYTE_BOUND = ("dense_floor", "packed", "gathered")
+#: a point timed twice in one run must agree to this (relative): a lone
+#: tier timed per call by CUDA events reads the host's enqueue instead and
+#: spreads 2x; a replayed graph repeats within a few percent
+REPEAT_RTOL = 0.10
+#: the fitted table must price each point to this (relative). A line fitted
+#: to two points passes through them; only a clamp moves it, and the dense
+#: floor's base clamp (below) moves its K=32 point by 6-8% on an H100
+FIT_RTOL = 0.15
+
+
+def check_fit(autotune, costs, points):
+    """Hold calibrate()'s table to the points it was fitted to: (k, units,
+    fat group, ms, repeat ms) per tier and K, in calibrate()'s order."""
+    failures, per_unit = [], {}
+    v5e = autotune.V5E_COSTS
+    ks = autotune.CALIBRATION_KS
+    for (tier, prefix), (k, units, G, ms, again) in zip(
+            [t for t in CALIBRATED_TIERS for _ in ks], points):
+        per = ms * 1e6 / max(units, 1)
+        model = costs[f"{prefix}_base_ns"] + costs[f"{prefix}_k_ns"] * k
+        if tier == "dense":     # calibrate() fits per tile less the step
+            step = (v5e["dense_step_base_ns"] + v5e["dense_step_k_ns"] * k)
+            model += step / G
+            per_unit[k] = per - step / G
+        err, spread = abs(model - per) / per, abs(again - ms) / ms
+        say(f"[calibrate]   {tier} K={k}: {units} units in {ms:.4f} ms = "
+            f"{per:.3f} ns per unit (repeat {again:.4f} ms, "
+            f"{spread:.1%}); the fitted table prices it {model:.3f} ns "
+            f"({err:.1%})")
+        if spread > REPEAT_RTOL:
+            failures.append(f"calibrate: {tier} K={k} repeats {ms:.4f} vs "
+                            f"{again:.4f} ms")
+        if not err <= FIT_RTOL:
+            failures.append(f"calibrate: {tier} K={k} priced {model:.3f} "
+                            f"ns against {per:.3f} measured")
+    bad = [key for key in autotune.CALIBRATED_KEYS
+           if not math.isfinite(costs[key])]
+    flat = [p for p in BYTE_BOUND if not costs[f"{p}_k_ns"] > 0]
+    if bad:
+        failures.append(f"calibrate: non-finite constants {bad}")
+    if flat:
+        failures.append(f"calibrate: per-unit time does not rise with K "
+                        f"for {flat}")
+    clamped = [p for _, p in CALIBRATED_TIERS if costs[f"{p}_base_ns"] == 0.5]
+    say(f"[calibrate] bases clamped at 0.5: {clamped or 'none'}")
+    if "dense_floor" in clamped:
+        import numpy as np
+        slope, base = np.polyfit(list(per_unit), list(per_unit.values()), 1)
+        say(f"[calibrate]   dense_floor: the fit's base is {base:.3f} ns "
+            f"(slope {slope:.4f}); known artifact of the v5e step model "
+            f"(108 + 0.79 K)/G that calibrate() subtracts from the card's "
+            f"per-tile time, kept for parity with the JAX package")
+    return failures
+
+
+def calibrate_phase(torch, bt, dev, suite, smi, results, picks):
+    """Phase 6: calibrate() on the card, its table next to V5E_COSTS and
+    held to its points, and the suite matrices re-priced with it and run.
+    The per-tier timer is wrapped to time each point twice and keep the
+    points each line is fitted to. Leaves no table in effect after it."""
+    from bsmr_sddmm_tpu_torch import autotune
+    points = []
+    time_tier = autotune._time_tier
+
+    def recorded(body, A, Bt, dplan):
+        ms = time_tier(body, A, Bt, dplan)
+        group = dplan.tile_panel.shape[0] // max(dplan.tile_src.shape[0], 1)
+        points.append((A.shape[1], body(A, Bt, dplan).shape[0], group, ms,
+                       time_tier(body, A, Bt, dplan)))
+        return ms
+
+    old = os.environ["BSMR_CACHE_DIR"]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["BSMR_CACHE_DIR"] = tmp
+        autotune._time_tier = recorded
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            costs = autotune.calibrate()
+            wall = time.perf_counter() - t0
+            launches = read_launches(results)
+            path = autotune._cache_path(torch.cuda.get_device_name())
+            stored = os.path.exists(path)
+        finally:
+            autotune._time_tier = time_tier
+            os.environ["BSMR_CACHE_DIR"] = old
+    say(f"[calibrate] calibrate() in {wall:.1f} s (each point timed twice); "
+        f"launches {launches}; cache {os.path.basename(path)} "
+        f"{'written' if stored else 'MISSING'}")
+    failures = check_fit(autotune, costs, points)
+    say(f"[calibrate] {smi}")
+    say(f"[calibrate]   {'key':20s} {'V5E_COSTS (TPU v5e)':>20s} "
+        f"{'calibrated here':>16s}")
+    for key in autotune.CALIBRATED_KEYS:
+        say(f"[calibrate]   {key:20s} {autotune.V5E_COSTS[key]:20.4f} "
+            f"{costs[key]:16.4f}")
+    if not stored:
+        failures.append(f"calibrate: no cache file {path}")
+    for kname in ("bsr_dense", "subpack"):
+        if launches[kname] <= 0:
+            failures.append(f"calibrate: {kname} never launched")
+    try:
+        for name in AUTOTUNE:
+            t0 = time.perf_counter()
+            c = bt.BsmrSddmm(suite[name], bt.SddmmConfig(
+                k=128, subpack_min_nnz=12), device=dev).choose(alpha="auto")
+            say(f"[calibrate] {name} calibrated pick: alpha={c.alpha} "
+                f"delta={c.delta} subpack={c.subpack} estimate "
+                f"{c.estimated_ms:.4f} ms, use_dense={c.use_dense}; priced "
+                f"in {time.perf_counter() - t0:.1f} s")
+            log, found = run_pick(bt, dev, suite[name], results, name,
+                                  "calibrate", c.alpha, c.delta, c.subpack,
+                                  c.use_dense)
+            failures += found
+            picks[name]["calibrated pick"] = (c.alpha, c.delta, c.subpack,
+                                              log.sddmm_ms)
+            for label, (alpha, delta, sub, ms) in picks[name].items():
+                say(f"[picks] {name} K=128 {label}: alpha={alpha} "
+                    f"delta={delta} subpack={sub} sddmm_ms {ms:.4f}")
+    finally:
+        # later phases price with V5E_COSTS, as their lines say
+        autotune._CALIBRATED = None
+    return failures
+
+
+def dense_phase(bt, dev, results):
+    """Phase 7: the dense fallback against the best-priced tiled plan on a
+    uniform mask, and the cost model's choice there and on a blocky mask,
+    both priced with V5E_COSTS."""
+    from bsmr_sddmm_tpu_torch import autotune, datasets
+    from bsmr_sddmm_tpu_torch.formats import random_mask
+    if autotune.current_costs() is not autotune.V5E_COSTS:
+        return ["dense: the cost table in effect is not V5E_COSTS"]
+    uni = datasets.uniform(4096, 350_000, seed=9)
+    cfg = bt.SddmmConfig(k=128, subpack_min_nnz=12)
+    pipe = bt.BsmrSddmm(uni, cfg, device=dev)
+    choice = pipe.choose()
+    tiled = {key: ms for key, ms in choice.candidates.items()
+             if key != "dense"}
+    delta, sub = min(tiled, key=tiled.get)
+    say(f"[dense] uniform(4096, 350000) K=128, priced with V5E_COSTS: "
+        f"use_dense={choice.use_dense}: dense arm "
+        f"{choice.candidates['dense']:.4f} ms vs best tiled (delta={delta}, "
+        f"subpack={sub}) {tiled[delta, sub]:.4f} ms, estimated")
+    _, failures = run_arm(bt, pipe, results, "uniform_4096", "dense",
+                          delta="dense")
+    pipe.config = cfg.replace(subpack_min_nnz=sub)
+    _, found = run_arm(bt, pipe, results, "uniform_4096", "dense",
+                       delta=delta)
+    blocky = random_mask(rows=16384, cols=16384, nnz=300_000, seed=3,
+                         block_rows=32, block_cols=256)
+    c2 = bt.BsmrSddmm(blocky, cfg, device=dev).choose()
+    tiled = min(v for key, v in c2.candidates.items() if key != "dense")
+    say(f"[dense] blocky random_mask(16384, 16384, 300000) K=128, priced "
+        f"with V5E_COSTS: use_dense={c2.use_dense}: dense arm "
+        f"{c2.candidates['dense']:.4f} ms vs best tiled (delta={c2.delta}) "
+        f"{tiled:.4f} ms, estimated")
+    return failures + found
+
+
+def timed(phase, fn, *args) -> list:
+    """Run one phase, print its wall time, return its failures."""
+    t0 = time.perf_counter()
+    found = fn(*args)
+    say(f"[{phase}] phase wall {time.perf_counter() - t0:.1f} s"
+        f"{'; FAILED: ' + str(found) if found else ''}")
+    return found
 
 
 def main() -> int:
@@ -373,12 +692,18 @@ def main() -> int:
                                        suite["banded_mesh_32k"], results)
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
-    failures = main_path(bt, dev, suite, results)
+    picks = {}
+    failures = main_path(bt, dev, suite, results, picks)
     if failures:
         fail(f"main path: {failures}")
-    failures = run_cli(bt, suite["community_20k"])
+    failures = timed("autotune", autotune_phase, bt, dev, suite, results,
+                     picks)
+    failures += timed("calibrate", calibrate_phase, torch, bt, dev, suite,
+                      smi, results, picks)
+    failures += timed("dense", dense_phase, bt, dev, results)
+    failures += timed("cli", run_cli, bt, suite["community_20k"])
     if failures:
-        fail(f"cli: {failures}")
+        fail(f"{failures}")
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -391,4 +716,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # an empty cache directory for the whole run: each phase prices with
+    # the table it names, never a tier_costs file left in build/
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["BSMR_CACHE_DIR"] = cache
+        sys.exit(main())

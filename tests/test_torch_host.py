@@ -409,7 +409,8 @@ def test_port_never_imports_jax():
         "bsmr_sddmm_tpu_torch.interop, bsmr_sddmm_tpu_torch.datasets, "
         "bsmr_sddmm_tpu_torch.ops.dense_kernels, "
         "bsmr_sddmm_tpu_torch.ops._build, bsmr_sddmm_tpu_torch.utils, "
-        "bsmr_sddmm_tpu_torch.cache, bsmr_sddmm_tpu_torch.evaluate\n"
+        "bsmr_sddmm_tpu_torch.cache, bsmr_sddmm_tpu_torch.evaluate, "
+        "bsmr_sddmm_tpu_torch.autotune, bsmr_sddmm_tpu_torch.baselines\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'bsmr_sddmm_tpu.')) "
         "or m == 'bsmr_sddmm_tpu')\n"

@@ -20,6 +20,8 @@ import pytest
 import torch
 
 import bsmr_sddmm_tpu_torch as bt
+from bsmr_sddmm_tpu_torch import autotune, baselines
+from bsmr_sddmm_tpu_torch.datasets import uniform
 from bsmr_sddmm_tpu_torch.formats import random_mask
 from bsmr_sddmm_tpu_torch.ops import _build
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
@@ -459,3 +461,68 @@ def test_benchmark_on_cuda_passes(cuda):
     assert log.check_result == "pass"
     assert log.device == torch.cuda.get_device_name(0)
     assert log.sddmm_ms > 0
+
+
+# the mask of tests/test_torch_autotune.py on which a tiled plan beats the
+# dense arm and the three alphas cluster differently
+AUTO = dict(rows=4096, cols=8192, nnz=30000, seed=23, block_rows=32,
+            block_cols=128, block_fill=0.8, shuffle_rows=True)
+
+
+@pytest.mark.cuda
+def test_refine_resorts_by_measured_time(cuda):
+    """refine_top on the card: the best-priced candidates are timed, the
+    times join the table as ("measured", alpha, delta, subpack), and the
+    pick is the measured argmin. A candidate that fails would raise."""
+    csr = random_mask(**AUTO)
+    cfg = bt.SddmmConfig(k=32, panel_height=16, subpack_min_nnz=12,
+                         num_iterations=4)
+    pipe = bt.BsmrSddmm(csr, cfg, device=cuda)
+    before = dk.bsr_dense.launches
+    choice = autotune.choose_config(csr, pipe._row_reordering, cfg,
+                                    refine_top=4, device=cuda)
+    measured = {key[1:]: ms for key, ms in choice.candidates.items()
+                if isinstance(key, tuple) and key[0] == "measured"}
+    assert len(measured) >= 2
+    assert all(ms > 0 for ms in measured.values())
+    assert measured[(choice.alpha, choice.delta, choice.subpack)] == \
+        min(measured.values())
+    assert dk.bsr_dense.launches > before
+
+
+@pytest.mark.cuda
+def test_dense_fallback_on_cuda_passes(cuda):
+    csr = uniform(4096, 350_000, seed=9)
+    A = bt.make_dense(csr.rows, 32, seed=1)
+    B = bt.make_dense(32, csr.cols, seed=2)
+    pipe = bt.BsmrSddmm(csr, bt.SddmmConfig(k=32, panel_height=16,
+                                            num_iterations=2), device=cuda)
+    log = pipe.benchmark(A, B, delta="dense", validate=True)
+    assert log.check_result == "pass"
+    assert log.extras["strategy"] == "dense_fallback"
+    assert log.device == torch.cuda.get_device_name(0) and log.sddmm_ms > 0
+    assert check_data(sddmm_ref(A, B, csr),
+                      pipe.run(A, B, delta="dense")).passed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", baselines.BASELINE_NAMES)
+def test_baseline_on_cuda_passes(cuda, name):
+    csr = random_mask(**SMALL)
+    A = bt.make_dense(csr.rows, 32, seed=1337)
+    B = bt.make_dense(32, csr.cols, seed=1338)
+    log = baselines.benchmark_baseline(name, csr, A, B, iterations=2,
+                                       validate=True, device=cuda)
+    assert log.check_result == "pass" and log.error_rate == 0.0
+
+
+@pytest.mark.cuda
+def test_time_cuda_graph_times_the_call(cuda):
+    """A replayed graph of one call gives that call's output and a device
+    time close to time_cuda's where the device work dominates."""
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda, time_cuda_graph
+    a = torch.rand(2048, 2048, device=cuda)
+    ms_graph, out = time_cuda_graph(torch.mm, a, a, iterations=20)
+    ms_events, want = time_cuda(torch.mm, a, a, iterations=20)
+    torch.testing.assert_close(out, want)
+    assert 0.5 * ms_events < ms_graph < 2.0 * ms_events

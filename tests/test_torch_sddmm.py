@@ -347,16 +347,22 @@ def test_no_cuda_needs_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("call", ["delta_auto", "alpha_auto", "dense"])
-def test_unported_features_raise(call):
+def test_auto_and_dense_features_run(call):
+    """The autotuned and dense-fallback calls run and validate (on this
+    tiny mask the cost model picks the fallback); the arm selection itself
+    is held against the JAX package in tests/test_torch_autotune.py."""
     tcsr = random_mask(**TINY)
     A = bt.make_dense(tcsr.rows, 32)
     B = bt.make_dense(32, tcsr.cols)
-    cfg = bt.SddmmConfig(**BASE_CFG)
+    cfg = bt.SddmmConfig(**dict(BASE_CFG, num_iterations=1))
     kw = {"delta_auto": dict(delta="auto"),
           "alpha_auto": dict(alpha="auto", delta="auto"),
           "dense": dict(delta="dense")}[call]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bt.BsmrSddmm(tcsr, cfg, device="cpu").benchmark(A, B, **kw)
+    pipe = bt.BsmrSddmm(tcsr, cfg, device="cpu")
+    log = pipe.benchmark(A, B, validate=True, **kw)
+    assert log.check_result == "pass"
+    assert log.extras.get("strategy") == "dense_fallback"
+    assert check_data(sddmm_ref(A, B, tcsr), pipe.run(A, B, **kw)).passed
 
 
 def test_cli_validates(tmp_path, capsys):
@@ -396,10 +402,17 @@ def test_cli_reorder_evaluate_tier_times_cache(tmp_path, capsys,
     assert "[checkResults : pass]" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--auto-delta"], ["--auto-alpha"],
-                                  ["--refine-top", "3"]])
-def test_cli_unported_flags_exit_nonzero(tmp_path, capsys, flag):
+@pytest.mark.parametrize("flag,log_name", [
+    (["--auto-delta"], "BSMR_k_32_a_0.3_d_auto.log"),
+    (["--auto-alpha"], "BSMR_k_32_a_auto_d_auto.log"),
+    (["--refine-top", "3"], "BSMR_k_32_a_0.3_d_0.3.log")])
+def test_cli_autotune_flags_run(tmp_path, capsys, flag, log_name):
+    """The JAX CLI's log names: --auto-alpha implies --auto-delta, and
+    --refine-top alone changes nothing."""
     path = str(tmp_path / "tiny.mtx")
     save_mtx(path, random_mask(**TINY))
-    assert cli.main(["-f", path, "--device", "cpu"] + flag) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    logs = tmp_path / "logs"
+    assert cli.main(["-f", path, "--device", "cpu", "--iterations", "1",
+                     "--validate", "-l", str(logs)] + flag) == 0
+    assert "[checkResults : pass]" in capsys.readouterr().out
+    assert [p.name for p in logs.iterdir()] == [log_name]
