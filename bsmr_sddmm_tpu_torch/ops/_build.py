@@ -29,7 +29,7 @@ from typing import Optional
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("bsr_dense.cu", "subpack.cu", "gathered_tile.cu")
-HEADERS = ("tile_matmul.cuh",)
+HEADERS = ("tile_matmul.cuh", "tile_mma.cuh", "tile_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIB_NAME = "libbsmr_torch_kernels.so"

@@ -14,22 +14,36 @@ tier) and ``fused_gathered`` replaces ``make_fused_gathered_kernel``
 (:330-416, the ``gathered_backend="fused"`` gathered tier). Each keeps its
 own launch count, so a run shows which tier went through the kernel.
 
-What bounds them on the card: a (ph x bw) = (32 x 128) tile at depth K reads
-4*K*(32 + 128) bytes of operands and writes 4*32*128 bytes, for 2*32*128*K
-flops: 7.1 flops per byte at K = 32, 10.7 at K = 128, never above 12.8,
-while the card's fp32 rate over its memory bandwidth is about 20. At K = 32
-the output store is nearly as large as the operand reads. Counted from
-device memory, the tiers would be bound by memory traffic; in practice the
-A panels and B blocks are re-read from L2 (tiles sorted by column block,
-panels shared), and this first design is bound by its own inner loop: fp32
-FFMA fed by shared-memory loads (PERF.md has the measured rates). The design
-is simple and right: one thread block per tile, the A panel and the B block
-staged through shared memory in K-chunks of 32, fp32 FFMA accumulation in
-order over K (no TF32, so no rounding question), a 4x4 register tile per
-thread (csrc/tile_matmul.cuh). It leaves for later: tensor cores (TF32 with
-``cvt.rna`` rounding or 3xTF32, ``wgmma``), larger register tiles, reuse of
-one B block across the G tiles of a fat step, TMA loads and persistent
-blocks.
+What bounds them on the card (:func:`tile_work` computes it): a (ph x bw) =
+(32 x 128) tile at K = 128 is 2^20 multiply-adds, three times that in TF32
+passes, for 16 KB of output; the operands are shared between tiles (each
+referenced row counted once). On banded_mesh_32k's plan the dense tier's
+bound is 0.059 ms at K = 128 (operations, bytes within 6%) and 0.048 ms at
+K = 32 (bytes: the output store); the gathered tiles are bound by bytes
+(PERF.md has the table and the measured times). The design, for sm_90a
+(csrc/tile_mma.cuh): tensor cores through ``mma.sync.m16n8k8`` with three
+TF32 passes (each value split ``hi = cvt.rna.tf32(x)``, ``lo =
+cvt.rna.tf32(x - hi)``; ``a_lo*b_hi + a_hi*b_lo + a_hi*b_hi`` in fp32
+accumulators, the card's form of the JAX kernel's bf16x3 split), which
+keeps ~fp32 accuracy: :func:`tf32_split` and :func:`three_pass_matmul` are
+its plain-torch statement, used by the tests. Operands reach shared memory
+by ``cp.async`` (16 bytes a thread, zero fill for missing rows and the K
+tail; 4 bytes a thread where K % 4 != 0) into padded K-major rows whose
+fragment reads (``ldmatrix``) have no bank conflicts; a warp owns 32 rows
+by a quarter of the tile's columns, so a tile takes 4 warps. ``bsr_dense``
+keeps a fat step's column block resident in shared memory, split once into
+hi and lo, in the swizzled layout that warpgroup MMAs (``wgmma``) read
+directly (csrc/tile_wgmma.cuh); persistent thread blocks each walk a
+contiguous share of the (step, 64 rows) units, the A panels streaming past
+the block through a ``cp.async`` ring; at G = 1, and where the block does
+not fit, it walks K in chunks of 32 through a 2-stage ring with both
+operands split on the fly, as the gathered tiles always do. The epilogue
+writes 16-byte streaming stores. On an H100 the kernels run at 3-4x their
+bounds at K = 128 and 1.5-1.7x at K = 32 (PERF.md). Left for later:
+producer warps and TMA loads for ``bsr_dense``, ``wgmma`` for the streaming
+route, and ``subpack`` on this core (it keeps the fp32 FFMA core of
+csrc/tile_matmul.cuh: one thread block per tile, K-chunks of 32 staged
+through shared memory, a 4x4 register tile per thread).
 
 Each wrapper checks its inputs and then dispatches on the device of its
 tensors: CPU tensors go to the plain version, CUDA tensors launch the
@@ -44,7 +58,8 @@ import torch
 import torch.nn.functional as F
 
 #: Tile geometries (panel_height, block_width) the CUDA kernels are
-#: instantiated for (BSMR_FOR_EACH_GEOMETRY in csrc/tile_matmul.cuh).
+#: instantiated for (BSMR_MMA_FOR_EACH_GEOMETRY in csrc/tile_mma.cuh,
+#: BSMR_FOR_EACH_GEOMETRY in csrc/tile_matmul.cuh).
 GEOMETRIES = frozenset((ph, bw) for ph in (8, 16, 32, 64) for bw in (128, 256))
 _OUT_DTYPES = (torch.float32, torch.float16)
 
@@ -83,6 +98,64 @@ def _launch_args(dev: torch.device, tensors):
 def _raise_on(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+# ---------------------------------------------------------------------------
+# Work and bound of a tile kernel; the three-pass TF32 product
+# ---------------------------------------------------------------------------
+
+#: NVIDIA H100 SXM data-sheet peaks: device memory bytes/s and dense TF32
+#: tensor-core flop/s.
+H100_BYTES_PER_S = 3.35e12
+H100_TF32_FLOPS = 495e12
+#: TF32 passes per product (hi*hi, lo*hi, hi*lo)
+TF32_PASSES = 3
+
+
+def tile_work(T: int, ph: int, bw: int, K: int, out_dtype: torch.dtype,
+              a_rows: int, b_rows: int, index_bytes: int = 0) -> dict:
+    """Work of one launch of a tile kernel and the least time an H100 could
+    take for it.
+
+    ``T`` tiles of (ph x bw) at depth K: ``flops = 2*T*ph*bw*K``. Bytes:
+    every operand row the launch references counted once (``a_rows`` rows
+    of A and ``b_rows`` rows of B, K floats each), the index arrays
+    (``index_bytes``) once, the output once in ``out_dtype``. ``bound_ms``
+    is the larger of bytes over the memory rate and the three TF32 passes'
+    operations over the tensor-core rate; ``bound_by`` names that side."""
+    flops = 2 * T * ph * bw * K
+    out_bytes = T * ph * bw * torch.empty((), dtype=out_dtype).element_size()
+    nbytes = out_bytes + 4 * K * (a_rows + b_rows) + index_bytes
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = TF32_PASSES * flops / H100_TF32_FLOPS * 1e3
+    return dict(flops=flops, bytes=nbytes, out_bytes=out_bytes,
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def tf32_split(x: torch.Tensor):
+    """``(hi, lo)`` of a float32 tensor as the kernels split it: ``hi`` is
+    ``x`` rounded to TF32 (10 explicit mantissa bits; the 13 dropped bits
+    round to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), by
+    integer arithmetic on the bit pattern; ``lo`` is ``x - hi`` rounded the
+    same way. Both are float32 tensors holding TF32 values."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def three_pass_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """``a @ b_t.T`` (batched over leading dims) as the tensor-core kernels
+    compute it: ``a_lo*b_hi + a_hi*b_lo + a_hi*b_hi`` on TF32-split
+    operands with fp32 sums (each pass is exact in fp32 products, as the
+    MMA's are). Plain torch, for tests."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b_t)
+    bh, bl = b_hi.transpose(-1, -2), b_lo.transpose(-1, -2)
+    return a_lo @ bh + a_hi @ bl + a_hi @ bh
 
 
 # ---------------------------------------------------------------------------

@@ -9,16 +9,24 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
 2. build: nvcc compiles csrc/*.cu for sm_90a (into build/torch_kernels/);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of plans packed from the SUITE matrix banded_mesh_32k at
-   K=128 and K=32 (fp32 and fp16 output), with max errors and CUDA-event
-   times of both: bsr_dense and subpack on bsr plans (the plan's fat group
-   G and G=1), dense_tile and fused_gathered on col_mode="reorder" plans
-   (alpha 0.3, delta 0.05);
+   K=128 and K=32 (fp32 and fp16 output), with max errors; the kernel's
+   time (a replayed CUDA graph, twice, in turns with the others) beside
+   its bound (dense_kernels.tile_work: the least time an H100 could take
+   for this launch's bytes and operations), its share of the bound, the
+   time of one library call (torch.bmm in fp32 on operands gathered
+   before the timed window) and the plain version's: bsr_dense and subpack
+   on bsr plans (the plan's fat group G and G=1), dense_tile and
+   fused_gathered on col_mode="reorder" plans (alpha 0.3, delta 0.05);
 4. main path: BsmrSddmm(csr, cfg).benchmark(A, B, validate=True) at K=128
    on banded_mesh_32k and community_20k: the bsr path (and once with fp16
    output), the reorder path with the fused gathered tier (once with
    tier_times), and the bsr path with the fused gathered tier. Every run
    must pass check_data against the fp64 oracle, and the launch counters
    of the kernels it runs, set to 0 just before it, must rise during it;
+   then one pipe.run() per run counts each kernel's launches per call,
+   and torch.profiler over 20 calls of the bsr and the reorder body on
+   banded_mesh_32k gives device busy time, host enqueue time and each
+   device kernel's share ([profile]);
 5. autotune: on banded_mesh_32k and community_20k at K=128, subpack 12,
    BsmrSddmm.choose(alpha="auto", refine_top=4) priced with V5E_COSTS: the
    pick of its estimates, each candidate's measured ms and the measured
@@ -62,10 +70,14 @@ HERE = Path(__file__).resolve().parent
 PKG = "bsmr_sddmm_tpu_torch"
 
 # kernel-vs-plain tolerance: |kernel - plain| <= ATOL + RTOL * |plain|.
-# fp32: both sides accumulate K <= 256 products of values in [0, 2) in
-# fp32 and differ only in summation order. fp16: each side rounds its fp32
-# sum to fp16 once, so they differ by at most one fp16 ulp (rel 2^-10),
-# which is the check_data tolerance (abs 1e-5 OR rel 1e-3).
+# fp32: both sides sum K <= 256 products of values in [0, 2) in fp32. The
+# plain version is an fp32 bmm (allow_tf32 False); bsr_dense, dense_tile
+# and fused_gathered run on tensor cores in three TF32 passes, which drop
+# only the lo*lo term of each product (~2^-22 relative) and sum in another
+# order, so they agree to a few fp32 ulps of the sum, not bit for bit.
+# fp16: each side rounds its fp32 sum to fp16 once, so they differ by at
+# most one fp16 ulp (rel 2^-10), which is the check_data tolerance (abs
+# 1e-5 OR rel 1e-3).
 TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
        "float16": dict(rtol=1e-3, atol=1e-5)}
 KERNELS = {
@@ -140,11 +152,112 @@ def compare(torch, got, want, out_dtype):
     return float(diff.max()), float((diff / denom).max()), ok
 
 
+def covered_rows(torch, ids, width, limit):
+    """Rows of an operand that blocks ``ids`` of ``width`` rows reference,
+    each once, rows at or past ``limit`` not counted."""
+    first = torch.unique(ids).long() * width
+    return int((first + width).clamp(max=limit).sub(first).clamp(min=0).sum())
+
+
+def launch_work(torch, dk, name, args, kw, out_dtype):
+    """dense_kernels.tile_work of one launch: every operand row it
+    references counted once, the index arrays once, the output once."""
+    A_panels, B, panel, src = args
+    ph, k = A_panels.shape[1], A_panels.shape[2]
+    a_rows = int(torch.unique(panel).numel()) * ph
+    if name == "bsr_dense":
+        bw = kw["block_width"]
+        b_rows = covered_rows(torch, src, bw, B.shape[0])
+    elif name == "subpack":
+        bw = src.shape[1] * kw["subblock_width"]
+        b_rows = covered_rows(torch, src, kw["subblock_width"], B.shape[0])
+    else:
+        bw = src.shape[1]
+        ids = torch.unique(src)
+        b_rows = int(((ids >= 0) & (ids < B.shape[0])).sum())
+    return dk.tile_work(panel.shape[0], ph, bw, k, out_dtype, a_rows=a_rows,
+                        b_rows=b_rows,
+                        index_bytes=4 * (panel.numel() + src.numel()))
+
+
+def library_operands(torch, name, args, kw):
+    """(a, b) with ``torch.bmm(a, b.mT)`` equal to the kernel's function:
+    the operands gathered outside the timed window, so the library call is
+    the product alone."""
+    import torch.nn.functional as F
+    A_panels, B, panel, src = args
+    k = B.shape[1]
+    a = A_panels.index_select(0, panel)
+    if name in ("dense_tile", "fused_gathered"):
+        ids = src.reshape(-1).long()
+        ids = torch.where((ids >= 0) & (ids < B.shape[0]), ids, B.shape[0])
+        return a, F.pad(B, (0, 0, 0, 1)).index_select(0, ids).reshape(
+            src.shape[0], src.shape[1], k)
+    width = (kw["block_width"] if name == "bsr_dense"
+             else kw["subblock_width"])
+    n_blocks = -(-B.shape[0] // width)
+    blocks = F.pad(B, (0, 0, 0, n_blocks * width - B.shape[0])).reshape(
+        n_blocks, width, k)
+    if name == "bsr_dense":
+        return a, blocks.index_select(
+            0, src.repeat_interleave(kw["fat_group"]))
+    return a, blocks.index_select(0, src.reshape(-1)).reshape(
+        src.shape[0], -1, k)
+
+
+def check_case(torch, dk, results, name, label, args, kw, keep):
+    """One kernel at one plan's shapes, fp32 and fp16 output: against its
+    plain version, and timed beside its bound, the library call and the
+    plain version. ``keep``: these are the times of the kernels line."""
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda, time_cuda_graph
+    kern, plain = getattr(dk, name), getattr(dk, f"{name}_plain")
+    failures = []
+    a, b = library_operands(torch, name, args, kw)
+    for od in ("float32", "float16"):
+        dt = getattr(torch, od)
+        got = kern(*args, out_dtype=dt, **kw)
+        want = plain(*args, out_dtype=dt, **kw)
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = compare(torch, got, want, od)
+        work = launch_work(torch, dk, name, args, kw, dt)
+        # in turns: kernel, library, plain, kernel. A launch of 0.05 ms is
+        # shorter than its enqueue, so the short ones replay a CUDA graph
+        first, _ = time_cuda_graph(lambda: kern(*args, out_dtype=dt, **kw))
+        lib_ms = None
+        if od == "float32":
+            lib_ms, lib = time_cuda_graph(lambda: torch.bmm(a, b.mT))
+            if compare(torch, lib, want, od)[2] is False:
+                failures.append(f"library call differs: {name} {label}")
+            del lib
+        plain_ms, _ = time_cuda(lambda: plain(*args, out_dtype=dt, **kw),
+                                iterations=20)
+        again, _ = time_cuda_graph(lambda: kern(*args, out_dtype=dt, **kw))
+        ms = (first + again) / 2
+        say(f"[kernels]   {name} {label} {od} out={tuple(got.shape)}: "
+            f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms ({first:.4f}, "
+            f"{again:.4f}); bound {work['bound_ms']:.4f} ms "
+            f"({work['bound_by']}: {work['bytes'] / 1e6:.1f} MB, "
+            f"{work['flops'] / 1e9:.2f} GFLOP x 3 passes), share of bound "
+            f"{work['bound_ms'] / ms:.0%}; library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; plain "
+            f"{plain_ms:.4f} ms")
+        if not ok:
+            failures.append(f"{name} {label} {od}")
+        rec = results[name]
+        if od == "float32":
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
+            if keep:
+                rec.update(ms=ms, plain_ms=plain_ms,
+                           bound_ms=work["bound_ms"],
+                           bound_by=work["bound_by"], library_ms=lib_ms)
+    return failures
+
+
 def check_kernels(torch, bt, dev, csr, results):
-    """Phase 3: each kernel vs its plain version at the plans' shapes."""
+    """Phase 3: bsr_dense and subpack at the shapes of bsr plans."""
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan
-    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda
     pipe = bt.BsmrSddmm(csr, bt.SddmmConfig(alpha=0.3, delta=0.002,
                                             subpack_min_nnz=12))
     failures = []
@@ -164,40 +277,18 @@ def check_kernels(torch, bt, dev, csr, results):
                 f"E={plan.res_arow.shape[0]} host {time.perf_counter()-t0:.2f}s")
             A_panels = A.index_select(0, dp.row_perm_padded).reshape(
                 plan.num_panels, plan.panel_height, k)
-            cases = [("bsr_dense", dk.bsr_dense, dk.bsr_dense_plain,
-                      (A_panels, Bt, dp.tile_panel, dp.tile_src),
-                      dict(fat_group=plan.fat_group,
-                           block_width=plan.block_width))]
+            label = f"G={plan.fat_group} K={k}"
+            failures += check_case(
+                torch, dk, results, "bsr_dense", label,
+                (A_panels, Bt, dp.tile_panel, dp.tile_src),
+                dict(fat_group=plan.fat_group, block_width=plan.block_width),
+                keep=(k, fat) == (128, 32))
             if fat != 1 and plan.num_packed:
                 Bt2 = Bt.index_select(0, dp.sp_colperm)
-                cases.append(("subpack", dk.subpack, dk.subpack_plain,
-                              (A_panels, Bt2, dp.sp_panel, dp.sp_sub),
-                              dict(subblock_width=plan.subblock_width)))
-            for name, kern, plain, args, kw in cases:
-                for od in ("float32", "float16"):
-                    dt = getattr(torch, od)
-                    got = kern(*args, out_dtype=dt, **kw)
-                    want = plain(*args, out_dtype=dt, **kw)
-                    torch.cuda.synchronize()
-                    max_abs, max_rel, ok = compare(torch, got, want, od)
-                    ms, _ = time_cuda(lambda: kern(*args, out_dtype=dt, **kw),
-                                      iterations=20)
-                    plain_ms, _ = time_cuda(
-                        lambda: plain(*args, out_dtype=dt, **kw),
-                        iterations=20)
-                    say(f"[kernels]   {name} G={kw.get('fat_group', '-')} "
-                        f"K={k} {od} out={tuple(got.shape)}: max_abs "
-                        f"{max_abs:.3e} max_rel {max_rel:.3e} "
-                        f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms, "
-                        f"plain {plain_ms:.4f} ms")
-                    if not ok:
-                        failures.append(f"{name} K={k} G={plan.fat_group} "
-                                        f"{od}")
-                    rec = results[name]
-                    if od == "float32":
-                        rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
-                    if (k, fat, od) == (128, 32, "float32"):
-                        rec.update(ms=ms, plain_ms=plain_ms)
+                failures += check_case(
+                    torch, dk, results, "subpack", f"K={k}",
+                    (A_panels, Bt2, dp.sp_panel, dp.sp_sub),
+                    dict(subblock_width=plan.subblock_width), keep=k == 128)
             del A_panels, dp
     return failures
 
@@ -207,7 +298,6 @@ def check_gathered_kernels(torch, bt, dev, csr, results):
     version at the shapes of banded_mesh_32k reorder plans."""
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan
-    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda
     pipe = bt.BsmrSddmm(csr, bt.SddmmConfig(
         alpha=0.3, delta=0.05, subpack_min_nnz=12, col_mode="reorder",
         gathered_backend="fused"))
@@ -227,33 +317,10 @@ def check_gathered_kernels(torch, bt, dev, csr, results):
             f"{time.perf_counter() - t0:.2f}s")
         A_panels = A.index_select(0, dp.row_perm_padded).reshape(
             plan.num_panels, plan.panel_height, k)
-        cases = (("dense_tile", dk.dense_tile, dk.dense_tile_plain,
-                  (A_panels, Bt, dp.tile_panel, dp.tile_src)),
-                 ("fused_gathered", dk.fused_gathered,
-                  dk.fused_gathered_plain,
-                  (A_panels, Bt, dp.g_panel, dp.g_cols)))
-        for name, kern, plain, args in cases:
-            for od in ("float32", "float16"):
-                dt = getattr(torch, od)
-                got = kern(*args, out_dtype=dt)
-                want = plain(*args, out_dtype=dt)
-                torch.cuda.synchronize()
-                max_abs, max_rel, ok = compare(torch, got, want, od)
-                ms, _ = time_cuda(lambda: kern(*args, out_dtype=dt),
-                                  iterations=20)
-                plain_ms, _ = time_cuda(lambda: plain(*args, out_dtype=dt),
-                                        iterations=20)
-                say(f"[kernels]   {name} K={k} {od} out={tuple(got.shape)}: "
-                    f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-                    f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms")
-                if not ok:
-                    failures.append(f"{name} K={k} {od}")
-                rec = results[name]
-                if od == "float32":
-                    rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
-                if (k, od) == (128, "float32"):
-                    rec.update(ms=ms, plain_ms=plain_ms)
+        for name, ids in (("dense_tile", (dp.tile_panel, dp.tile_src)),
+                          ("fused_gathered", (dp.g_panel, dp.g_cols))):
+            failures += check_case(torch, dk, results, name, f"K={k}",
+                                   (A_panels, Bt) + ids, {}, keep=k == 128)
         del A_panels, dp
     return failures
 
@@ -282,6 +349,7 @@ def plan_kernels(log):
 def main_path(bt, dev, suite, results, picks):
     """Phase 4: the user's entry point on the suite matrices. The arm and
     sddmm_ms of each matrix's fp32 bsr run go into ``picks``."""
+    from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     failures = []
     for name, alpha, delta, od, mode, gb, tiers, expect in MAIN:
         csr = suite[name]
@@ -292,8 +360,9 @@ def main_path(bt, dev, suite, results, picks):
         B = bt.make_dense(128, csr.cols, seed=1338)
         zero_launches()
         t0 = time.perf_counter()
-        log = bt.BsmrSddmm(csr, cfg, device=dev).benchmark(
-            A, B, validate=True, tier_times=tiers, file=name)
+        pipe = bt.BsmrSddmm(csr, cfg, device=dev)
+        log = pipe.benchmark(A, B, validate=True, tier_times=tiers,
+                             file=name)
         wall = time.perf_counter() - t0
         launches = read_launches(results)
         if (mode, gb, od) == ("bsr", "xla", "float32"):
@@ -322,7 +391,74 @@ def main_path(bt, dev, suite, results, picks):
         for kname in expect:
             if launches[kname] <= 0:
                 failures.append(f"{run}: {kname} never launched")
+        # one call of the body, through the same pipeline (its reordering
+        # is kept); counted apart from the benchmark's launches above
+        zero_launches()
+        pipe.run(A, B)
+        per_call = {kname: getattr(dk, kname).launches for kname in KERNELS}
+        say(f"[main]   launches per call: {per_call}")
+        for kname, n in per_call.items():
+            rec = results[kname]
+            rec["launches_per_call"] = max(rec["launches_per_call"], n)
+            if kname in expect and n != 1:
+                failures.append(f"{run}: {kname} launched {n} times in one "
+                                f"call")
     return failures
+
+
+PROFILE = (("bsr", dict(alpha=0.3, delta=0.002)),
+           ("reorder", dict(alpha=0.3, delta=0.05, col_mode="reorder",
+                            gathered_backend="fused")))
+PROFILE_CALLS = 20
+
+
+def profile_phase(torch, bt, dev, csr):
+    """torch.profiler over PROFILE_CALLS calls of the rphm body on
+    banded_mesh_32k at K=128, bsr and reorder: device busy time, host
+    enqueue time and each device kernel's share per call. Reports; fails
+    only if the body does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, make_sddmm_body
+    A = torch.from_numpy(bt.make_dense(csr.rows, 128, seed=1337)).to(dev)
+    Bt = torch.from_numpy(
+        bt.make_dense(128, csr.cols, seed=1338).T.copy()).to(dev)
+    for mode, arm in PROFILE:
+        cfg = bt.SddmmConfig(k=128, subpack_min_nnz=12, **arm)
+        plan = bt.pack_tiles(csr, bt.BsmrSddmm(csr, cfg).reorder(), cfg)
+        dp = device_plan(plan, dev, emit="rphm")
+        body = make_sddmm_body(plan, cfg, emit="rphm")
+        for _ in range(PROFILE_CALLS):
+            body(A, Bt, dp)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_CALLS):
+                body(A, Bt, dp)
+            enqueue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device kernels only: an aten op's row repeats its kernels' time
+        rows = [(e.key, getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows = sorted(((key, us / PROFILE_CALLS / 1e3) for key, us in rows
+                       if us > 0), key=lambda kv: -kv[1])
+        busy = sum(ms for _, ms in rows)
+        if not busy:
+            say(f"[profile] banded_mesh_32k {mode}: no device time in the "
+                f"trace: not measured")
+            continue
+        say(f"[profile] banded_mesh_32k K=128 {mode} {arm}, per call over "
+            f"{PROFILE_CALLS} calls (profiler on): wall "
+            f"{wall * 1e3 / PROFILE_CALLS:.4f} ms, host enqueue "
+            f"{enqueue * 1e3 / PROFILE_CALLS:.4f} ms, device busy "
+            f"{busy:.4f} ms")
+        for key, ms in rows[:10]:
+            say(f"[profile]   {ms:.4f} ms {ms / busy:5.1%}  {key[:100]}")
+    return []
 
 
 CLI_RUNS = ((["-a", "0.3", "-d", "0.002", "--validate"], ()),
@@ -492,14 +628,23 @@ def check_fit(autotune, costs, points):
     failures, per_unit = [], {}
     v5e = autotune.V5E_COSTS
     ks = autotune.CALIBRATION_KS
-    for (tier, prefix), (k, units, G, ms, again) in zip(
-            [t for t in CALIBRATED_TIERS for _ in ks], points):
+    tiers = [t for t in CALIBRATED_TIERS for _ in ks]
+
+    def step_ns(k, G):
+        return (v5e["dense_step_base_ns"] + v5e["dense_step_k_ns"] * k) / G
+
+    # calibrate() fits the dense floor to max(per tile - step, 0.5)
+    for (tier, _), (k, units, G, ms, _) in zip(tiers, points):
+        if tier == "dense":
+            per_unit[k] = ms * 1e6 / max(units, 1) - step_ns(k, G)
+    # a tile cheaper than v5e's step model at every K leaves no line to fit
+    dense_clamped = bool(per_unit) and all(v <= 0.5
+                                           for v in per_unit.values())
+    for (tier, prefix), (k, units, G, ms, again) in zip(tiers, points):
         per = ms * 1e6 / max(units, 1)
         model = costs[f"{prefix}_base_ns"] + costs[f"{prefix}_k_ns"] * k
         if tier == "dense":     # calibrate() fits per tile less the step
-            step = (v5e["dense_step_base_ns"] + v5e["dense_step_k_ns"] * k)
-            model += step / G
-            per_unit[k] = per - step / G
+            model += step_ns(k, G)
         err, spread = abs(model - per) / per, abs(again - ms) / ms
         say(f"[calibrate]   {tier} K={k}: {units} units in {ms:.4f} ms = "
             f"{per:.3f} ns per unit (repeat {again:.4f} ms, "
@@ -508,12 +653,13 @@ def check_fit(autotune, costs, points):
         if spread > REPEAT_RTOL:
             failures.append(f"calibrate: {tier} K={k} repeats {ms:.4f} vs "
                             f"{again:.4f} ms")
-        if not err <= FIT_RTOL:
+        if not err <= FIT_RTOL and not (tier == "dense" and dense_clamped):
             failures.append(f"calibrate: {tier} K={k} priced {model:.3f} "
                             f"ns against {per:.3f} measured")
     bad = [key for key in autotune.CALIBRATED_KEYS
            if not math.isfinite(costs[key])]
-    flat = [p for p in BYTE_BOUND if not costs[f"{p}_k_ns"] > 0]
+    flat = [p for p in BYTE_BOUND if not costs[f"{p}_k_ns"] > 0
+            and not (p == "dense_floor" and dense_clamped)]
     if bad:
         failures.append(f"calibrate: non-finite constants {bad}")
     if flat:
@@ -521,7 +667,16 @@ def check_fit(autotune, costs, points):
                         f"for {flat}")
     clamped = [p for _, p in CALIBRATED_TIERS if costs[f"{p}_base_ns"] == 0.5]
     say(f"[calibrate] bases clamped at 0.5: {clamped or 'none'}")
-    if "dense_floor" in clamped:
+    if dense_clamped:
+        say(f"[calibrate]   dense_floor: both points clamp: per tile less "
+            f"the v5e step model (108 + 0.79 K)/G is "
+            f"{ {k: round(v, 3) for k, v in per_unit.items()} } ns, at or "
+            f"under the 0.5 ns floor calibrate() keeps, so the fitted line "
+            f"is flat at 0.5 ns and is held neither to its points nor to a "
+            f"positive slope; the card's tiles cost less than the TPU step "
+            f"model that calibrate() subtracts (kept for parity with the "
+            f"JAX package)")
+    elif "dense_floor" in clamped:
         import numpy as np
         slope, base = np.polyfit(list(per_unit), list(per_unit.values()), 1)
         say(f"[calibrate]   dense_floor: the fit's base is {base:.3f} ns "
@@ -675,7 +830,21 @@ def main() -> int:
         spills = re.search(r"[1-9]\d* bytes spill", report)
         say(f"[build] ptxas: {len(regs)} kernel instances, "
             f"{min(regs)}-{max(regs)} registers, up to {max(smem)} bytes "
-            f"smem, spills: {'YES' if spills else 'none'}")
+            f"static smem, spills: {'YES' if spills else 'none'}")
+        # per kernel: registers and spill bytes over its instances (the
+        # tensor-core kernels take their shared memory at launch: 23-198 KB)
+        per_kernel = {}
+        for fn, st, ld, r in re.findall(
+                r"Compiling entry function '(\w+)' for[^\n]*\n[^\n]*\n"
+                r"[^\n]*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+                r"\n[^\n]*Used (\d+) registers", report):
+            kname = re.search(r"\d+([a-z_]+_kernel)", fn)
+            per_kernel.setdefault(kname.group(1) if kname else fn,
+                                  []).append((int(r), int(st) + int(ld)))
+        for kname, vals in sorted(per_kernel.items()):
+            say(f"[build]   {kname}: {len(vals)} instances, "
+                f"{min(v[0] for v in vals)}-{max(v[0] for v in vals)} "
+                f"registers, spill bytes {max(v[1] for v in vals)}")
 
     t0 = time.perf_counter()
     suite = {name: gen() for name, gen in datasets.SUITE
@@ -683,7 +852,9 @@ def main() -> int:
     say(f"[data] suite matrices in {time.perf_counter() - t0:.1f} s")
 
     results = {name: dict(name=name, route="cuda", **meta, launches=0,
-                          max_abs_err=0.0, ms=None, plain_ms=None)
+                          launches_per_call=0, max_abs_err=0.0, ms=None,
+                          plain_ms=None, bound_ms=None, bound_by=None,
+                          library_ms=None)
                for name, meta in KERNELS.items()}
     dev = torch.device("cuda")
     failures = check_kernels(torch, bt, dev, suite["banded_mesh_32k"],
@@ -696,6 +867,7 @@ def main() -> int:
     failures = main_path(bt, dev, suite, results, picks)
     if failures:
         fail(f"main path: {failures}")
+    timed("profile", profile_phase, torch, bt, dev, suite["banded_mesh_32k"])
     failures = timed("autotune", autotune_phase, bt, dev, suite, results,
                      picks)
     failures += timed("calibrate", calibrate_phase, torch, bt, dev, suite,

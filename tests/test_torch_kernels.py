@@ -7,9 +7,15 @@ Tolerances: rtol 1e-5 / atol 1e-5 against the Pallas kernels at
 precision="highest" (both sides are fp32; only the order of summation
 differs); the check_data tolerance (abs 1e-5 OR rel 1e-3) against the
 default bf16x3 split. On the card, fp32 kernel vs fp32 plain at rtol 1e-5 /
-atol 1e-4 (summation order over K <= 128 products of values below 2), and
-fp16 at the check_data tolerance (each side rounds to fp16 once: at most one
-fp16 ulp, rel 2^-10 < 1e-3).
+atol 1e-4 on the reference's fills (values in [0, 2), K <= 256: the
+tensor-core kernels' three TF32 passes drop only the lo*lo term, ~2^-22
+relative per product, and sum in another order), and fp16 at the check_data
+tolerance (each side rounds to fp16 once: at most one fp16 ulp, rel 2^-10 <
+1e-3). With inputs of mixed signs a sum can cancel, so a gate relative to
+the sum means nothing: those tests hold |kernel - plain| <= 1e-5 *
+(|A| . |B|^T) elementwise (plus one fp16 ulp of the plain value for fp16
+output). A kernel's result is the same from launch to launch (no atomics, a
+fixed order of summation): tested with torch.equal.
 
 The tests marked ``cuda`` import nothing of JAX, so that they run on a
 machine without it: ``python -m pytest --noconftest -m cuda
@@ -46,14 +52,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def bsr_inputs(num_panels=5, ph=16, k=32, n_cols=300, T=8, G=2, seed=0):
+def fills(rng, shape, signed):
+    """The reference's fills, uniform [0, 2), or standard normal values
+    (mixed signs)."""
+    if signed:
+        return rng.standard_normal(shape).astype(np.float32)
+    return rng.random(shape, dtype=np.float32) * 2
+
+
+def bsr_inputs(num_panels=5, ph=16, k=32, n_cols=300, T=8, G=2, seed=0,
+               bw=BW, signed=False):
     """A_panels, Bt, tile_panel, step_cblock; N is not a multiple of bw
     and the partial last column block is always read."""
     rng = np.random.default_rng(seed)
-    A_panels = rng.random((num_panels, ph, k), dtype=np.float32) * 2
-    Bt = rng.random((n_cols, k), dtype=np.float32) * 2
+    A_panels = fills(rng, (num_panels, ph, k), signed)
+    Bt = fills(rng, (n_cols, k), signed)
     tile_panel = rng.integers(0, num_panels, T).astype(np.int32)
-    n_cb = -(-n_cols // BW)
+    n_cb = -(-n_cols // bw)
     step_cblock = rng.integers(0, n_cb, T // G).astype(np.int32)
     step_cblock[0] = n_cb - 1
     return A_panels, Bt, tile_panel, step_cblock
@@ -74,15 +89,15 @@ def subpack_inputs(num_panels=5, ph=16, k=32, H=70, Tp=6, sw=32, seed=1):
 
 
 def gathered_inputs(num_panels=5, ph=16, k=32, n_cols=300, T=6, seed=2,
-                    out_of_range=False):
+                    out_of_range=False, bw=BW, signed=False):
     """A_panels, Bt, panel, cols (T, bw): column ids unsorted, repeated
     (the last tile repeats one column, as pad tiles do) and, with
     ``out_of_range``, one id -1 and one id N."""
     rng = np.random.default_rng(seed)
-    A_panels = rng.random((num_panels, ph, k), dtype=np.float32) * 2
-    Bt = rng.random((n_cols, k), dtype=np.float32) * 2
+    A_panels = fills(rng, (num_panels, ph, k), signed)
+    Bt = fills(rng, (n_cols, k), signed)
     panel = rng.integers(0, num_panels, T).astype(np.int32)
-    cols = rng.integers(0, n_cols, (T, BW)).astype(np.int32)
+    cols = rng.integers(0, n_cols, (T, bw)).astype(np.int32)
     cols[0, 0] = n_cols - 1
     cols[-1] = cols[-1, 0]
     if out_of_range:
@@ -299,6 +314,95 @@ def test_build_path_keys_sources_and_flags(monkeypatch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# work and bound of a launch; the three-pass TF32 product (CPU)
+# ---------------------------------------------------------------------------
+
+#: banded_mesh_32k plans (M = N = 32768 rows of A and of Bt referenced):
+#: (T, K, index bytes) -> (MB moved, bound ms, the side that binds)
+WORK_TABLE = {
+    "bsr_dense K=128 G=32": ((9216, 128, 4 * (9216 + 288)),
+                             (184.6, 0.059, "operations")),
+    "bsr_dense K=32 G=32": ((9216, 32, 4 * (9216 + 288)),
+                            (159.4, 0.048, "bytes")),
+    "bsr_dense K=128 G=1": ((7168, 128, 0), (151.0, 0.046, "operations")),
+    "dense_tile K=128 reorder": ((3584, 128, 4 * 3584 * 129),
+                                 (94.1, 0.028, "bytes")),
+    "fused_gathered K=128 reorder": ((2048, 128, 4 * 2048 * 129),
+                                     (68.2, 0.020, "bytes")),
+}
+
+
+@pytest.mark.parametrize("row", sorted(WORK_TABLE))
+def test_tile_work_matches_table(row):
+    (T, k, index_bytes), (mb, bound_ms, side) = WORK_TABLE[row]
+    w = dk.tile_work(T, 32, 128, k, torch.float32, a_rows=32768,
+                     b_rows=32768, index_bytes=index_bytes)
+    assert w["flops"] == 2 * T * 32 * 128 * k
+    assert round(w["bytes"] / 1e6, 1) == mb
+    assert round(w["bound_ms"], 3) == bound_ms
+    assert w["bound_ms"] == max(w["bytes_ms"], w["ops_ms"])
+    assert w["ops_ms"] == pytest.approx(3 * w["flops"] / 495e12 * 1e3)
+    assert w["bytes_ms"] == pytest.approx(w["bytes"] / 3.35e12 * 1e3)
+    if side:
+        assert w["bound_by"] == side
+
+
+def test_tile_work_fp16_halves_the_output_bytes():
+    kw = dict(a_rows=32768, b_rows=32768, index_bytes=0)
+    w32 = dk.tile_work(9216, 32, 128, 32, torch.float32, **kw)
+    w16 = dk.tile_work(9216, 32, 128, 32, torch.float16, **kw)
+    assert w16["out_bytes"] * 2 == w32["out_bytes"] == 9216 * 32 * 128 * 4
+    assert w32["bytes"] - w16["bytes"] == w16["out_bytes"]
+    assert w16["flops"] == w32["flops"] and w16["bound_ms"] < w32["bound_ms"]
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_tf32_split_restores_the_value(signed):
+    """hi and lo are TF32 values (13 low bits clear), hi is x rounded to
+    nearest, and hi + lo restores x to 2^-21 relative."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(fills(rng, 100_000, signed))
+    hi, lo = dk.tf32_split(x)
+    for part in (hi, lo):
+        assert part.dtype == torch.float32
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    x64, hi64, lo64 = x.double(), hi.double(), lo.double()
+    assert ((x64 - hi64).abs() <= x64.abs() * 2.0 ** -11).all()
+    assert ((hi64 + lo64 - x64).abs() <= x64.abs() * 2.0 ** -21).all()
+    # a value that is TF32 already splits into itself and zero
+    hi2, lo2 = dk.tf32_split(hi)
+    assert torch.equal(hi2, hi) and not lo2.any()
+
+
+@pytest.mark.parametrize("k", [32, 64, 128, 256])
+def test_three_pass_product_keeps_fp32_accuracy(k):
+    """On the reference's fills the kernels' arithmetic is within rel 1e-5
+    of the fp64 product: check_data's rel 1e-3 holds with margin."""
+    A = bt.make_dense(96, k, seed=1337)
+    Bt = bt.make_dense(k, 160, seed=1338).T.copy()
+    got = dk.three_pass_matmul(torch.from_numpy(A), torch.from_numpy(Bt))
+    want = A.astype(np.float64) @ Bt.astype(np.float64).T
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=1e-5, atol=0)
+    assert check_data(want, got.numpy()).passed
+
+
+@pytest.mark.parametrize("k", [32, 64, 128, 256])
+def test_three_pass_product_with_mixed_signs(k):
+    rng = np.random.default_rng(k)
+    A = fills(rng, (96, k), signed=True)
+    Bt = fills(rng, (160, k), signed=True)
+    got = dk.three_pass_matmul(torch.from_numpy(A), torch.from_numpy(Bt))
+    want = A.astype(np.float64) @ Bt.astype(np.float64).T
+    bound = np.abs(A).astype(np.float64) @ np.abs(Bt).astype(np.float64).T
+    assert (np.abs(got.double().numpy() - want) <= 1e-5 * bound).all()
+    # one TF32 pass alone does not meet that bound
+    hi_a, _ = dk.tf32_split(torch.from_numpy(A))
+    hi_b, _ = dk.tf32_split(torch.from_numpy(Bt))
+    one = (hi_a @ hi_b.T).double().numpy()
+    assert not (np.abs(one - want) <= 1e-5 * bound).all()
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (card only)
 # ---------------------------------------------------------------------------
 
@@ -396,6 +500,123 @@ def test_kernel_rejects_unsupported_tile(cuda):
     A, Bt, tp, sc = tensors(*bsr_inputs(ph=24), device=cuda)
     with pytest.raises(ValueError, match="no kernel"):
         dk.bsr_dense(A, Bt, tp, sc, fat_group=2, block_width=BW)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernels' edges (card only): mixed signs, odd K, ragged N,
+# ids out of range, runs of a fat step, every geometry, repeatability
+# ---------------------------------------------------------------------------
+
+def assert_within_products(got, plain, args, kw):
+    """|kernel - plain| <= 1e-5 * (|A| . |B|^T) elementwise, where the
+    bound is the plain version on the operands' absolute values; for fp16
+    output plus one fp16 ulp of the plain value."""
+    want = plain(*args, **kw)
+    bound = plain(args[0].abs(), args[1].abs(), *args[2:],
+                  **dict(kw, out_dtype=torch.float32))
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    slack = 1e-5 * bound
+    if got.dtype == torch.float16:
+        slack = slack + 2.0 ** -10 * want.float().abs() + 6e-8
+    assert ((got.float() - want.float()).abs() <= slack).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 3, 12, 16, 32])
+@pytest.mark.parametrize("k", [32, 36, 33, 40, 256])
+def test_bsr_dense_kernel_edges(cuda, k, G):
+    """Mixed signs; K with and without 16-byte rows and a ragged last
+    chunk; N not a multiple of bw; fat steps worked two tiles at a time,
+    with a lone last tile (G = 3); K = 256 does not stay resident."""
+    args = tensors(*bsr_inputs(num_panels=50, ph=32, k=k, n_cols=1000,
+                               T=3 * G, G=G, signed=True), device=cuda)
+    kw = dict(fat_group=G, block_width=BW, out_dtype=torch.float32)
+    got = dk.bsr_dense(*args, **kw)
+    assert_within_products(got, dk.bsr_dense_plain, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,G", [(64, 8), (128, 5), (32, 32)])
+def test_bsr_dense_kernel_shares_of_many_units(cuda, k, G):
+    """More units than thread blocks the card holds: every persistent
+    block walks several units and crosses fat steps, reloading the
+    resident column block."""
+    args = tensors(*bsr_inputs(num_panels=300, ph=32, k=k, n_cols=5000,
+                               T=512 * G, G=G, signed=True), device=cuda)
+    kw = dict(fat_group=G, block_width=BW, out_dtype=torch.float32)
+    got = dk.bsr_dense(*args, **kw)
+    assert_within_products(got, dk.bsr_dense_plain, args, kw)
+    assert torch.equal(dk.bsr_dense(*args, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("ph,bw", sorted(dk.GEOMETRIES))
+@pytest.mark.parametrize("k,G", [(128, 4), (64, 1), (64, 4), (32, 3)])
+def test_bsr_dense_kernel_every_geometry(cuda, k, G, ph, bw, out_dtype):
+    """(64, 4) and (32, 3) keep the column block resident at both block
+    widths (at 256 on the wider warpgroup MMA), the second with a ragged
+    last unit; (128, 4) does so at width 128 and streams at 256; G = 1
+    streams."""
+    args = tensors(*bsr_inputs(num_panels=20, ph=ph, k=k, n_cols=1000,
+                               T=24, G=G, bw=bw, signed=True), device=cuda)
+    kw = dict(fat_group=G, block_width=bw, out_dtype=out_dtype)
+    got = dk.bsr_dense(*args, **kw)
+    assert got.shape == (24, ph, bw)
+    assert_within_products(got, dk.bsr_dense_plain, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GATHERED))
+@pytest.mark.parametrize("k", [32, 36, 33, 40, 256])
+def test_gathered_kernel_edges(cuda, name, k):
+    """Mixed signs, repeated ids, one id -1 and one id N, odd K."""
+    wrapper, plain = GATHERED[name]
+    args = tensors(*gathered_inputs(num_panels=50, ph=32, k=k, n_cols=1000,
+                                    T=40, out_of_range=True, signed=True),
+                   device=cuda)
+    kw = dict(out_dtype=torch.float32)
+    got = wrapper(*args, **kw)
+    assert_within_products(got, plain, args, kw)
+    assert (got[0, :, 1] == 0).all() and (got[20, :, 5] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("ph,bw", sorted(dk.GEOMETRIES))
+def test_gathered_kernel_every_geometry(cuda, ph, bw, out_dtype):
+    args = tensors(*gathered_inputs(num_panels=20, ph=ph, k=64, n_cols=1000,
+                                    T=24, bw=bw, out_of_range=True,
+                                    signed=True), device=cuda)
+    kw = dict(out_dtype=out_dtype)
+    got = dk.dense_tile(*args, **kw)
+    assert got.shape == (24, ph, bw)
+    assert_within_products(got, dk.dense_tile_plain, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bsr_dense G=32", "bsr_dense G=1",
+                                  "dense_tile", "fused_gathered"])
+def test_kernels_repeat_bit_for_bit(cuda, case):
+    if case.startswith("bsr_dense"):
+        G = int(case.split("=")[1])
+        args = tensors(*bsr_inputs(num_panels=40, ph=32, k=128, n_cols=1000,
+                                   T=64, G=G, signed=True), device=cuda)
+
+        def run():
+            return dk.bsr_dense(*args, fat_group=G, block_width=BW)
+    else:
+        args = tensors(*gathered_inputs(num_panels=40, ph=32, k=128,
+                                        n_cols=1000, T=64, signed=True),
+                       device=cuda)
+
+        def run():
+            return GATHERED[case][0](*args)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
 
 
 def small_plan(out_dtype="float32"):
