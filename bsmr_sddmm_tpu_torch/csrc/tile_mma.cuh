@@ -1,6 +1,6 @@
-// Tensor-core arithmetic core of the dense BSR tier (bsr_dense.cu) and of the
-// gathered-column tiles (gathered_tile.cu) on sm_90a: one (PH x BW) output
-// tile
+// Tensor-core arithmetic core of the dense BSR tier (bsr_dense.cu), of the
+// gathered-column tiles (gathered_tile.cu) and of the hot-column packed
+// tiles (subpack.cu) on sm_90a: one (PH x BW) output tile
 //
 //   out[r][c] = sum_k a[r][k] * b_row(c)[k]
 //

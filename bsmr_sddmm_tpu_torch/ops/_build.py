@@ -29,7 +29,7 @@ from typing import Optional
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("bsr_dense.cu", "subpack.cu", "gathered_tile.cu")
-HEADERS = ("tile_matmul.cuh", "tile_mma.cuh", "tile_wgmma.cuh")
+HEADERS = ("tile_mma.cuh", "tile_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIB_NAME = "libbsmr_torch_kernels.so"
@@ -87,23 +87,38 @@ def _run_all(cmds: list) -> str:
     return "".join(outs)
 
 
-def _compile(out: str) -> None:
+def compile_sources(out: str, csrc: str = _CSRC, sources=SOURCES) -> str:
+    """Compile ``sources`` of the directory ``csrc`` into the shared library
+    ``out`` (one nvcc each, all started together, and one to link) and
+    return the compiler's report."""
     build = os.path.dirname(out)
     os.makedirs(build, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     nvcc = find_nvcc()
-    t0 = time.perf_counter()
-    objs = [os.path.join(build, f"{src}.{tag}.o") for src in SOURCES]
+    objs = [os.path.join(build, f"{src}.{tag}.o") for src in sources]
     report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                        os.path.join(_CSRC, src)]
-                       for src, obj in zip(SOURCES, objs)])
+                        os.path.join(csrc, src)]
+                       for src, obj in zip(sources, objs)])
     tmp = f"{out}.{tag}"
     report += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
     for obj in objs:
         os.remove(obj)
     os.replace(tmp, out)
+    return report
+
+
+def _compile(out: str) -> None:
+    t0 = time.perf_counter()
+    report = compile_sources(out)
     build_info.update(compiled=True, seconds=time.perf_counter() - t0,
                       report=report)
+
+
+def bind_subpack(lib: ctypes.CDLL) -> None:
+    """Declare ``bsmr_subpack``'s C signature on a loaded library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bsmr_subpack.restype = i
+    lib.bsmr_subpack.argtypes = [p] * 6 + [i] * 9 + [p]
 
 
 def load_library() -> ctypes.CDLL:
@@ -121,8 +136,7 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bsmr_bsr_dense.restype = i
         lib.bsmr_bsr_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.bsmr_subpack.restype = i
-        lib.bsmr_subpack.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        bind_subpack(lib)
         lib.bsmr_gathered_tile.restype = i
         lib.bsmr_gathered_tile.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         build_info["path"] = path

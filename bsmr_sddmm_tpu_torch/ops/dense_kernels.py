@@ -6,9 +6,11 @@ wrappers and their plain PyTorch versions.
 and ``make_bsr_dense_kernel`` (:144-201, G = 1): one kernel, where tile t
 reads column block ``step_cblock[t // G]``; a G = 1 plan passes its
 ``tile_cblock`` as ``step_cblock``. ``subpack`` (csrc/subpack.cu) replaces
-``make_subpack_kernel`` (:261-327). ``dense_tile`` and ``fused_gathered``
-are two wrappers over one kernel (csrc/gathered_tile.cu) whose tile t reads
-the bw rows ``Bt[cols[t, :]]`` by index: ``dense_tile`` replaces
+``make_subpack_kernel`` (:261-327) and the body's ``Bt[sp_colperm]`` gather
+before it: the kernel reads the hot columns through ``sp_colperm`` itself.
+``dense_tile`` and ``fused_gathered`` are two wrappers over one kernel
+(csrc/gathered_tile.cu) whose tile t reads the bw rows ``Bt[cols[t, :]]``
+by index: ``dense_tile`` replaces
 ``make_dense_tile_kernel`` (:204-252, the ``col_mode="reorder"`` dense
 tier) and ``fused_gathered`` replaces ``make_fused_gathered_kernel``
 (:330-416, the ``gathered_backend="fused"`` gathered tier). Each keeps its
@@ -37,13 +39,10 @@ directly (csrc/tile_wgmma.cuh); persistent thread blocks each walk a
 contiguous share of the (step, 64 rows) units, the A panels streaming past
 the block through a ``cp.async`` ring; at G = 1, and where the block does
 not fit, it walks K in chunks of 32 through a 2-stage ring with both
-operands split on the fly, as the gathered tiles always do. The epilogue
-writes 16-byte streaming stores. On an H100 the kernels run at 3-4x their
-bounds at K = 128 and 1.5-1.7x at K = 32 (PERF.md). Left for later:
-producer warps and TMA loads for ``bsr_dense``, ``wgmma`` for the streaming
-route, and ``subpack`` on this core (it keeps the fp32 FFMA core of
-csrc/tile_matmul.cuh: one thread block per tile, K-chunks of 32 staged
-through shared memory, a 4x4 register tile per thread).
+operands split on the fly, as the gathered tiles and the packed tiles
+always do. The epilogue writes 16-byte streaming stores. PERF.md has every
+kernel's time on an H100 beside its bound. Left for later: producer warps
+and TMA loads for ``bsr_dense``, and ``wgmma`` for the streaming route.
 
 Each wrapper checks its inputs and then dispatches on the device of its
 tensors: CPU tensors go to the plain version, CUDA tensors launch the
@@ -58,8 +57,7 @@ import torch
 import torch.nn.functional as F
 
 #: Tile geometries (panel_height, block_width) the CUDA kernels are
-#: instantiated for (BSMR_MMA_FOR_EACH_GEOMETRY in csrc/tile_mma.cuh,
-#: BSMR_FOR_EACH_GEOMETRY in csrc/tile_matmul.cuh).
+#: instantiated for (BSMR_MMA_FOR_EACH_GEOMETRY in csrc/tile_mma.cuh).
 GEOMETRIES = frozenset((ph, bw) for ph in (8, 16, 32, 64) for bw in (128, 256))
 _OUT_DTYPES = (torch.float32, torch.float16)
 
@@ -224,45 +222,53 @@ bsr_dense.launches = 0
 # Hot-column packed tier
 # ---------------------------------------------------------------------------
 
-def subpack_plain(A_panels: torch.Tensor, Bt2: torch.Tensor,
-                  sp_panel: torch.Tensor, sp_sub: torch.Tensor, *,
-                  subblock_width: int,
+def subpack_plain(A_panels: torch.Tensor, Bt: torch.Tensor,
+                  sp_colperm: torch.Tensor, sp_panel: torch.Tensor,
+                  sp_sub: torch.Tensor, *, subblock_width: int,
                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of :func:`subpack`: ``out[t] = A_panels[sp_panel[t]]
-    @ concat_s(Bt2[sp_sub[t, s]*sw : +sw]).T``, rows of Bt2 at or past H
-    reading as zero. (Tp, ph, S*sw)."""
-    sw, k = subblock_width, Bt2.shape[1]
+    @ concat_s(Bt2[sp_sub[t, s]*sw : +sw]).T`` with ``Bt2 =
+    Bt[sp_colperm]`` (H, K), rows of Bt2 at or past H reading as zero
+    (through one block of zeros appended to Bt2). (Tp, ph, S*sw)."""
+    sw, k = subblock_width, Bt.shape[1]
     Tp, S = sp_sub.shape
+    Bt2 = Bt.index_select(0, sp_colperm)
     n_sb = -(-Bt2.shape[0] // sw)
-    pad = n_sb * sw - Bt2.shape[0]
-    subs = (F.pad(Bt2, (0, 0, 0, pad)) if pad else Bt2).reshape(n_sb, sw, k)
+    pad = (n_sb + 1) * sw - Bt2.shape[0]
+    subs = F.pad(Bt2, (0, 0, 0, pad)).reshape(n_sb + 1, sw, k)
+    ids = sp_sub.reshape(-1).long()
+    ids = torch.where((ids >= 0) & (ids < n_sb), ids, n_sb)
     a = A_panels.index_select(0, sp_panel)
-    b = subs.index_select(0, sp_sub.reshape(-1)).reshape(Tp, S * sw, k)
+    b = subs.index_select(0, ids).reshape(Tp, S * sw, k)
     return torch.bmm(a, b.transpose(1, 2)).to(out_dtype)
 
 
-def subpack(A_panels: torch.Tensor, Bt2: torch.Tensor,
-            sp_panel: torch.Tensor, sp_sub: torch.Tensor, *,
-            subblock_width: int,
+def subpack(A_panels: torch.Tensor, Bt: torch.Tensor,
+            sp_colperm: torch.Tensor, sp_panel: torch.Tensor,
+            sp_sub: torch.Tensor, *, subblock_width: int,
             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Hot-column packed tier: (Tp, ph, S*sw) tiles, tile t from panel
-    ``sp_panel[t]`` and the S sub-blocks ``sp_sub[t]`` of ``Bt2`` (H, K).
-    Kernel on CUDA tensors, plain version on CPU tensors."""
-    dev = _check_operands("subpack", A_panels, Bt2,
-                          (("sp_panel", sp_panel), ("sp_sub", sp_sub)),
-                          out_dtype)
+    ``sp_panel[t]`` and the S sub-blocks ``sp_sub[t]`` of the hot columns:
+    sub-block j is the sw rows ``Bt[sp_colperm[j*sw : (j+1)*sw]]`` of ``Bt``
+    (N, K), read by index inside the kernel (``Bt[sp_colperm]`` is never
+    materialised). Kernel on CUDA tensors, plain version on CPU tensors."""
+    dev = _check_operands("subpack", A_panels, Bt,
+                          (("sp_colperm", sp_colperm), ("sp_panel", sp_panel),
+                           ("sp_sub", sp_sub)), out_dtype)
     sw = subblock_width
     _check(sp_sub.dim() == 2 and sp_sub.shape[0] == sp_panel.shape[0]
            and sw > 0, f"subpack: sp_sub must be (Tp, S), got "
            f"{tuple(sp_sub.shape)} for Tp={sp_panel.shape[0]}")
+    _check(sp_colperm.dim() == 1, f"subpack: sp_colperm must be (H,), got "
+           f"{tuple(sp_colperm.shape)}")
     if dev.type == "cpu":
-        return subpack_plain(A_panels, Bt2, sp_panel, sp_sub,
+        return subpack_plain(A_panels, Bt, sp_colperm, sp_panel, sp_sub,
                              subblock_width=sw, out_dtype=out_dtype)
     Tp, S = sp_sub.shape
     ph, K, bw = A_panels.shape[1], A_panels.shape[2], S * sw
     _check((ph, bw) in GEOMETRIES,
            f"subpack: no kernel for tile {ph}x{bw}")
-    ptrs = _launch_args(dev, (A_panels, Bt2, sp_panel, sp_sub))
+    ptrs = _launch_args(dev, (A_panels, Bt, sp_colperm, sp_panel, sp_sub))
     out = torch.empty((Tp, ph, bw), dtype=out_dtype, device=dev)
     if Tp == 0:
         return out
@@ -270,7 +276,8 @@ def subpack(A_panels: torch.Tensor, Bt2: torch.Tensor,
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.bsmr_subpack(
-            *ptrs, out.data_ptr(), Tp, S, sw, ph, bw, K, Bt2.shape[0],
+            *ptrs, out.data_ptr(), Tp, S, sw, ph, bw, K,
+            sp_colperm.shape[0], Bt.shape[0],
             int(out_dtype == torch.float16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on("subpack", err)

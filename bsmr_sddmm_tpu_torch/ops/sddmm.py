@@ -8,7 +8,8 @@ The counterpart of ``bsmr_sddmm_tpu.ops.sddmm`` (``device_plan``,
 2. dense tier: ``dense_kernels.bsr_dense`` over natural column blocks
    (``col_mode="bsr"``), or ``dense_kernels.dense_tile`` over each tile's
    own ``tile_cols`` (``col_mode="reorder"``), one launch over all tiles;
-3. packed tier: ``Bt2 = Bt[sp_colperm]`` once, then ``dense_kernels.subpack``;
+3. packed tier: ``dense_kernels.subpack``, which reads the hot columns
+   ``Bt[sp_colperm]`` by index inside the kernel;
 4. gathered tier: ``dense_kernels.fused_gathered`` where the JAX body takes
    its fused arm (``gathered_backend="fused"``, Tg > 0, no gather windows),
    else a row gather of each tile's bw columns and one ``bmm``;
@@ -157,9 +158,8 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     def packed_out(A_panels, Bt, dplan):
         if Tp == 0:
             return A_panels.new_empty((0, ph, bw), dtype=out_dt)
-        Bt2 = Bt.index_select(0, dplan.sp_colperm)     # (H, K), once
-        return packed_op(A_panels, Bt2, dplan.sp_panel, dplan.sp_sub,
-                         subblock_width=sw, out_dtype=out_dt)
+        return packed_op(A_panels, Bt, dplan.sp_colperm, dplan.sp_panel,
+                         dplan.sp_sub, subblock_width=sw, out_dtype=out_dt)
 
     def gathered_out(A_panels, Bt, dplan):
         if fused:

@@ -15,8 +15,9 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    for this launch's bytes and operations), its share of the bound, the
    time of one library call (torch.bmm in fp32 on operands gathered
    before the timed window) and the plain version's: bsr_dense and subpack
-   on bsr plans (the plan's fat group G and G=1), dense_tile and
-   fused_gathered on col_mode="reorder" plans (alpha 0.3, delta 0.05);
+   on bsr plans (the plan's fat group G and G=1), dense_tile,
+   fused_gathered and subpack on col_mode="reorder" plans (alpha 0.3,
+   delta 0.05), whose packed tier is the larger;
 4. main path: BsmrSddmm(csr, cfg).benchmark(A, B, validate=True) at K=128
    on banded_mesh_32k and community_20k: the bsr path (and once with fp16
    output), the reorder path with the fused gathered tier (once with
@@ -25,8 +26,8 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    of the kernels it runs, set to 0 just before it, must rise during it;
    then one pipe.run() per run counts each kernel's launches per call,
    and torch.profiler over 20 calls of the bsr and the reorder body on
-   banded_mesh_32k gives device busy time, host enqueue time and each
-   device kernel's share ([profile]);
+   banded_mesh_32k gives device busy time, host enqueue time, each
+   device kernel's share and the index_select calls per call ([profile]);
 5. autotune: on banded_mesh_32k and community_20k at K=128, subpack 12,
    BsmrSddmm.choose(alpha="auto", refine_top=4) priced with V5E_COSTS: the
    pick of its estimates, each candidate's measured ms and the measured
@@ -71,10 +72,10 @@ PKG = "bsmr_sddmm_tpu_torch"
 
 # kernel-vs-plain tolerance: |kernel - plain| <= ATOL + RTOL * |plain|.
 # fp32: both sides sum K <= 256 products of values in [0, 2) in fp32. The
-# plain version is an fp32 bmm (allow_tf32 False); bsr_dense, dense_tile
-# and fused_gathered run on tensor cores in three TF32 passes, which drop
-# only the lo*lo term of each product (~2^-22 relative) and sum in another
-# order, so they agree to a few fp32 ulps of the sum, not bit for bit.
+# plain version is an fp32 bmm (allow_tf32 False); all four kernels run on
+# tensor cores in three TF32 passes, which drop only the lo*lo term of each
+# product (~2^-22 relative) and sum in another order, so they agree to a
+# few fp32 ulps of the sum, not bit for bit.
 # fp16: each side rounds its fp32 sum to fp16 once, so they differ by at
 # most one fp16 ulp (rel 2^-10), which is the check_data tolerance (abs
 # 1e-5 OR rel 1e-3).
@@ -161,23 +162,33 @@ def covered_rows(torch, ids, width, limit):
 
 def launch_work(torch, dk, name, args, kw, out_dtype):
     """dense_kernels.tile_work of one launch: every operand row it
-    references counted once, the index arrays once, the output once."""
-    A_panels, B, panel, src = args
+    references counted once, the index arrays once, the output once.
+    ``args`` are the wrapper's: (A_panels, B, ..., panel ids, B ids)."""
+    A_panels, B = args[:2]
+    panel, src = args[-2:]
     ph, k = A_panels.shape[1], A_panels.shape[2]
     a_rows = int(torch.unique(panel).numel()) * ph
+    index_bytes = 4 * (panel.numel() + src.numel())
     if name == "bsr_dense":
         bw = kw["block_width"]
         b_rows = covered_rows(torch, src, bw, B.shape[0])
-    elif name == "subpack":
-        bw = src.shape[1] * kw["subblock_width"]
-        b_rows = covered_rows(torch, src, kw["subblock_width"], B.shape[0])
     else:
-        bw = src.shape[1]
-        ids = torch.unique(src)
+        if name == "subpack":
+            # the slots of sp_colperm that the sub-blocks name, then the
+            # rows of Bt those slots name
+            colperm, sw = args[2], kw["subblock_width"]
+            bw = src.shape[1] * sw
+            slots = (torch.unique(src).long()[:, None] * sw
+                     + torch.arange(sw, device=src.device)).reshape(-1)
+            slots = slots[(slots >= 0) & (slots < colperm.numel())]
+            index_bytes += 4 * slots.numel()
+            ids = torch.unique(colperm[slots])
+        else:
+            bw = src.shape[1]
+            ids = torch.unique(src)
         b_rows = int(((ids >= 0) & (ids < B.shape[0])).sum())
     return dk.tile_work(panel.shape[0], ph, bw, k, out_dtype, a_rows=a_rows,
-                        b_rows=b_rows,
-                        index_bytes=4 * (panel.numel() + src.numel()))
+                        b_rows=b_rows, index_bytes=index_bytes)
 
 
 def library_operands(torch, name, args, kw):
@@ -185,7 +196,8 @@ def library_operands(torch, name, args, kw):
     the operands gathered outside the timed window, so the library call is
     the product alone."""
     import torch.nn.functional as F
-    A_panels, B, panel, src = args
+    A_panels, B = args[:2]
+    panel, src = args[-2:]
     k = B.shape[1]
     a = A_panels.index_select(0, panel)
     if name in ("dense_tile", "fused_gathered"):
@@ -193,8 +205,10 @@ def library_operands(torch, name, args, kw):
         ids = torch.where((ids >= 0) & (ids < B.shape[0]), ids, B.shape[0])
         return a, F.pad(B, (0, 0, 0, 1)).index_select(0, ids).reshape(
             src.shape[0], src.shape[1], k)
-    width = (kw["block_width"] if name == "bsr_dense"
-             else kw["subblock_width"])
+    if name == "subpack":
+        B, width = B.index_select(0, args[2]), kw["subblock_width"]
+    else:
+        width = kw["block_width"]
     n_blocks = -(-B.shape[0] // width)
     blocks = F.pad(B, (0, 0, 0, n_blocks * width - B.shape[0])).reshape(
         n_blocks, width, k)
@@ -284,18 +298,18 @@ def check_kernels(torch, bt, dev, csr, results):
                 dict(fat_group=plan.fat_group, block_width=plan.block_width),
                 keep=(k, fat) == (128, 32))
             if fat != 1 and plan.num_packed:
-                Bt2 = Bt.index_select(0, dp.sp_colperm)
                 failures += check_case(
                     torch, dk, results, "subpack", f"K={k}",
-                    (A_panels, Bt2, dp.sp_panel, dp.sp_sub),
+                    (A_panels, Bt, dp.sp_colperm, dp.sp_panel, dp.sp_sub),
                     dict(subblock_width=plan.subblock_width), keep=k == 128)
             del A_panels, dp
     return failures
 
 
 def check_gathered_kernels(torch, bt, dev, csr, results):
-    """Phase 3, second part: dense_tile and fused_gathered vs their plain
-    version at the shapes of banded_mesh_32k reorder plans."""
+    """Phase 3, second part: dense_tile, fused_gathered and subpack vs
+    their plain versions at the shapes of banded_mesh_32k reorder plans
+    (the kernels line keeps subpack's times on the bsr plan)."""
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan
     pipe = bt.BsmrSddmm(csr, bt.SddmmConfig(
@@ -321,6 +335,10 @@ def check_gathered_kernels(torch, bt, dev, csr, results):
                           ("fused_gathered", (dp.g_panel, dp.g_cols))):
             failures += check_case(torch, dk, results, name, f"K={k}",
                                    (A_panels, Bt) + ids, {}, keep=k == 128)
+        failures += check_case(
+            torch, dk, results, "subpack", f"reorder K={k}",
+            (A_panels, Bt, dp.sp_colperm, dp.sp_panel, dp.sp_sub),
+            dict(subblock_width=plan.subblock_width), keep=False)
         del A_panels, dp
     return failures
 
@@ -458,6 +476,11 @@ def profile_phase(torch, bt, dev, csr):
             f"{busy:.4f} ms")
         for key, ms in rows[:10]:
             say(f"[profile]   {ms:.4f} ms {ms / busy:5.1%}  {key[:100]}")
+        gathers = sum(e.count for e in prof.key_averages()
+                      if e.key == "aten::index_select") / PROFILE_CALLS
+        say(f"[profile]   index_select calls per call: {gathers:g}; with "
+            f"Bt[sp_colperm] materialised before subpack instead of read "
+            f"inside it: {gathers + bool(plan.num_packed):g}")
     return []
 
 

@@ -9,7 +9,8 @@ differs); the check_data tolerance (abs 1e-5 OR rel 1e-3) against the
 default bf16x3 split. On the card, fp32 kernel vs fp32 plain at rtol 1e-5 /
 atol 1e-4 on the reference's fills (values in [0, 2), K <= 256: the
 tensor-core kernels' three TF32 passes drop only the lo*lo term, ~2^-22
-relative per product, and sum in another order), and fp16 at the check_data
+relative per product, and sum in another order; all four kernels run on
+that core), and fp16 at the check_data
 tolerance (each side rounds to fp16 once: at most one fp16 ulp, rel 2^-10 <
 1e-3). With inputs of mixed signs a sum can cancel, so a gate relative to
 the sum means nothing: those tests hold |kernel - plain| <= 1e-5 *
@@ -31,6 +32,7 @@ from bsmr_sddmm_tpu_torch.datasets import uniform
 from bsmr_sddmm_tpu_torch.formats import random_mask
 from bsmr_sddmm_tpu_torch.ops import _build
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+from bsmr_sddmm_tpu_torch.ops import subpack_phases
 from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
                                             sddmm_ref)
 from bsmr_sddmm_tpu_torch.utils.checkdata import check_data
@@ -74,18 +76,27 @@ def bsr_inputs(num_panels=5, ph=16, k=32, n_cols=300, T=8, G=2, seed=0,
     return A_panels, Bt, tile_panel, step_cblock
 
 
-def subpack_inputs(num_panels=5, ph=16, k=32, H=70, Tp=6, sw=32, seed=1):
-    """A_panels, Bt2, sp_panel, sp_sub; H is not a multiple of sw and the
-    partial last sub-block is always read."""
+def subpack_inputs(num_panels=5, ph=16, k=32, H=70, Tp=6, sw=32, seed=1,
+                   bw=BW, signed=False, past_h=False):
+    """A_panels, Bt, sp_colperm, sp_panel, sp_sub. ``sp_colperm`` (H,) lists
+    the hot columns of Bt (3 * H rows) as the packer leaves them: distinct
+    ids in no order, the last real one repeated over a pad tail, then
+    trimmed, so that H is not a multiple of sw; the partial last sub-block
+    is always read. With ``past_h`` one slot names a sub-block wholly past
+    H."""
     rng = np.random.default_rng(seed)
-    S = BW // sw
-    A_panels = rng.random((num_panels, ph, k), dtype=np.float32) * 2
-    Bt2 = rng.random((H, k), dtype=np.float32) * 2
+    S = bw // sw
+    A_panels = fills(rng, (num_panels, ph, k), signed)
+    Bt = fills(rng, (3 * H, k), signed)
+    sp_colperm = rng.permutation(3 * H)[:H].astype(np.int32)
+    sp_colperm[-5:] = sp_colperm[-6]
     sp_panel = rng.integers(0, num_panels, Tp).astype(np.int32)
     n_sb = -(-H // sw)
     sp_sub = rng.integers(0, n_sb, (Tp, S)).astype(np.int32)
     sp_sub[0, -1] = n_sb - 1
-    return A_panels, Bt2, sp_panel, sp_sub
+    if past_h:
+        sp_sub[1, 0] = n_sb
+    return A_panels, Bt, sp_colperm, sp_panel, sp_sub
 
 
 def gathered_inputs(num_panels=5, ph=16, k=32, n_cols=300, T=6, seed=2,
@@ -166,16 +177,38 @@ def test_bsr_dense_plain_matches_dense_kernel(precision, ph, k):
 @pytest.mark.parametrize("ph,k,sw", [(16, 32, 32), (32, 64, 32),
                                      (16, 32, 64)])
 def test_subpack_plain_matches_subpack_kernel(precision, ph, k, sw):
+    """The Pallas kernel takes Bt2 = Bt[sp_colperm] gathered outside it, as
+    the JAX body feeds it; the port's side takes Bt and sp_colperm."""
     jnp, pd = pallas()
-    A_panels, Bt2, sp_panel, sp_sub = subpack_inputs(ph=ph, k=k, sw=sw)
+    A_panels, Bt, sp_colperm, sp_panel, sp_sub = subpack_inputs(ph=ph, k=k,
+                                                                sw=sw)
+    Bt2 = Bt[sp_colperm]
     ref = pd.make_subpack_kernel(
         num_panels=A_panels.shape[0], ph=ph, bw=BW, k=k,
         n_cols=Bt2.shape[0], sw=sw, precision=precision,
         interpret=True)(jnp.asarray(A_panels), jnp.asarray(Bt2),
                         jnp.asarray(sp_panel), jnp.asarray(sp_sub))
-    got = dk.subpack_plain(*tensors(A_panels, Bt2, sp_panel, sp_sub),
-                           subblock_width=sw)
+    got = dk.subpack_plain(*tensors(A_panels, Bt, sp_colperm, sp_panel,
+                                    sp_sub), subblock_width=sw)
     assert_matches(ref, got.numpy(), precision)
+
+
+@pytest.mark.parametrize("sw,bw", [(32, 128), (64, 128), (32, 256)])
+def test_subpack_plain_reads_past_h_as_zero(sw, bw):
+    """Against numpy: the permutation's repeats, the partial last sub-block
+    and a sub-block wholly past H (zeros)."""
+    A_panels, Bt, sp_colperm, sp_panel, sp_sub = subpack_inputs(
+        sw=sw, bw=bw, past_h=True, signed=True)
+    got = dk.subpack_plain(*tensors(A_panels, Bt, sp_colperm, sp_panel,
+                                    sp_sub), subblock_width=sw).numpy()
+    H, n_sb = sp_colperm.shape[0], -(-sp_colperm.shape[0] // sw)
+    Bt2 = np.zeros(((n_sb + 1) * sw, Bt.shape[1]), np.float32)
+    Bt2[:H] = Bt[sp_colperm]
+    rows = (sp_sub[:, :, None] * sw + np.arange(sw)).reshape(len(sp_sub), bw)
+    want = np.einsum("tpk,tck->tpc", A_panels[sp_panel], Bt2[rows])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[1, :, :sw].any()
+    assert not got[0, :, bw - sw + H % sw:].any() and got[0].any()
 
 
 @pytest.mark.parametrize("precision", ["highest", "bf16x3"])
@@ -285,11 +318,15 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         dk.bsr_dense(A.to("meta"), Bt.to("meta"), tp.to("meta"),
                      sc.to("meta"), **kw)
-    A, Bt2, sp, ss = tensors(*subpack_inputs())
+    A, Bt, cp, sp, ss = tensors(*subpack_inputs())
     with pytest.raises(ValueError, match="sp_sub"):
-        dk.subpack(A, Bt2, sp[:-1], ss, subblock_width=32)
+        dk.subpack(A, Bt, cp, sp[:-1], ss, subblock_width=32)
+    with pytest.raises(ValueError, match="sp_colperm"):
+        dk.subpack(A, Bt, cp.reshape(-1, 1), sp, ss, subblock_width=32)
+    with pytest.raises(ValueError, match="int32"):
+        dk.subpack(A, Bt, cp.long(), sp, ss, subblock_width=32)
     with pytest.raises(ValueError, match="on cpu"):
-        dk.subpack(A, Bt2.to("meta"), sp, ss, subblock_width=32)
+        dk.subpack(A, Bt.to("meta"), cp, sp, ss, subblock_width=32)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -311,6 +348,20 @@ def test_build_path_keys_sources_and_flags(monkeypatch, tmp_path):
     assert _build.library_path() != path
     monkeypatch.delenv("BSMR_TORCH_KERNEL_DIR")
     assert _build.kernel_dir().endswith(("build/torch_kernels"))
+
+
+@pytest.mark.parametrize("variant", sorted(subpack_phases.VARIANTS))
+def test_phase_variants_edit_the_sources_they_name(variant, tmp_path):
+    """Each variant of ops/subpack_phases.py is the kernel sources with its
+    edits, every edit found exactly once (or the copy raises), and nothing
+    else changed; the sources themselves hold no switch."""
+    csrc = subpack_phases.copy_variant(variant, str(tmp_path))
+    edited = {fname for fname, _, _ in subpack_phases.VARIANTS[variant]}
+    assert edited <= set(_build.SOURCES + _build.HEADERS)
+    for fname in _build.SOURCES + _build.HEADERS:
+        with open(f"{csrc}/{fname}") as f, \
+                open(f"{_build._CSRC}/{fname}") as g:
+            assert (f.read() != g.read()) == (fname in edited)
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +453,32 @@ def test_three_pass_product_with_mixed_signs(k):
     assert not (np.abs(one - want) <= 1e-5 * bound).all()
 
 
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("k", [32, 128])
+def test_three_pass_product_matches_subpack_plain(k, signed):
+    """The packed tier's shapes (ph 32, S = 4 sub-blocks of 32 hot columns):
+    the arithmetic of the subpack kernel, stated in plain torch on the rows
+    it resolves, agrees with subpack_plain as the kernel is held to on the
+    card."""
+    A_panels, Bt, sp_colperm, sp_panel, sp_sub = subpack_inputs(
+        num_panels=12, ph=32, k=k, H=200, Tp=16, signed=signed, past_h=True)
+    args = tensors(A_panels, Bt, sp_colperm, sp_panel, sp_sub)
+    want = dk.subpack_plain(*args, subblock_width=32)
+    H = sp_colperm.shape[0]
+    rows = (sp_sub[:, :, None] * 32 + np.arange(32)).reshape(len(sp_sub), BW)
+    Bt2 = np.zeros((rows.max() + 1, k), np.float32)
+    Bt2[:H] = Bt[sp_colperm]
+    a, b = tensors(A_panels[sp_panel], Bt2[rows])
+    got = dk.three_pass_matmul(a, b)
+    assert got.shape == want.shape == (16, 32, BW)
+    if signed:
+        bound = a.abs() @ b.abs().transpose(1, 2)
+        assert ((got - want).abs() <= 1e-5 * bound).all()
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert not got[1, :, :32].any()
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (card only)
 # ---------------------------------------------------------------------------
@@ -445,6 +522,7 @@ def test_subpack_kernel_matches_plain(cuda, out_dtype, ph, k, sw):
     want = dk.subpack_plain(*args, subblock_width=sw, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert dk.subpack.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (64, ph, BW)
     assert_kernel_close(got, want)
 
 
@@ -504,7 +582,8 @@ def test_kernel_rejects_unsupported_tile(cuda):
 
 # ---------------------------------------------------------------------------
 # the tensor-core kernels' edges (card only): mixed signs, odd K, ragged N,
-# ids out of range, runs of a fat step, every geometry, repeatability
+# ids out of range, runs of a fat step, sub-blocks past H, every geometry,
+# more tiles than resident blocks, repeatability
 # ---------------------------------------------------------------------------
 
 def assert_within_products(got, plain, args, kw):
@@ -597,10 +676,68 @@ def test_gathered_kernel_every_geometry(cuda, ph, bw, out_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 36, 33, 40, 256])
+def test_subpack_kernel_edges(cuda, k):
+    """Mixed signs; K with and without 16-byte rows and a ragged last
+    chunk; a permutation with repeats; the partial last sub-block and a
+    sub-block wholly past H read as zero."""
+    args = tensors(*subpack_inputs(num_panels=50, ph=32, k=k, H=1000, Tp=40,
+                                   signed=True, past_h=True), device=cuda)
+    kw = dict(subblock_width=32, out_dtype=torch.float32)
+    got = dk.subpack(*args, **kw)
+    assert_within_products(got, dk.subpack_plain, args, kw)
+    assert not got[1, :, :32].any()
+    assert not got[0, :, 96 + 1000 % 32:].any() and got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("ph,bw", sorted(dk.GEOMETRIES))
+@pytest.mark.parametrize("sw", [32, 64])
+def test_subpack_kernel_every_geometry(cuda, sw, ph, bw, out_dtype):
+    args = tensors(*subpack_inputs(num_panels=20, ph=ph, k=64, H=1000, Tp=24,
+                                   sw=sw, bw=bw, signed=True, past_h=True),
+                   device=cuda)
+    kw = dict(subblock_width=sw, out_dtype=out_dtype)
+    got = dk.subpack(*args, **kw)
+    assert got.shape == (24, ph, bw)
+    assert_within_products(got, dk.subpack_plain, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,Tp", [(128, 4096), (32, 6000)])
+def test_subpack_kernel_more_tiles_than_resident_blocks(cuda, k, Tp):
+    """More tiles than the thread blocks the card holds at once."""
+    args = tensors(*subpack_inputs(num_panels=300, ph=32, k=k, H=5000,
+                                   Tp=Tp, signed=True), device=cuda)
+    kw = dict(subblock_width=32, out_dtype=torch.float32)
+    got = dk.subpack(*args, **kw)
+    assert_within_products(got, dk.subpack_plain, args, kw)
+    assert torch.equal(dk.subpack(*args, **kw), got)
+
+
+@pytest.mark.cuda
+def test_subpack_zero_tiles_launch_nothing(cuda):
+    A, Bt, cp, _, _ = tensors(*subpack_inputs(), device=cuda)
+    sp_panel = torch.zeros(0, dtype=torch.int32, device=cuda)
+    sp_sub = torch.zeros((0, 4), dtype=torch.int32, device=cuda)
+    before = dk.subpack.launches
+    out = dk.subpack(A, Bt, cp, sp_panel, sp_sub, subblock_width=32)
+    assert out.shape == (0, A.shape[1], BW)
+    assert dk.subpack.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bsr_dense G=32", "bsr_dense G=1",
-                                  "dense_tile", "fused_gathered"])
+                                  "subpack", "dense_tile", "fused_gathered"])
 def test_kernels_repeat_bit_for_bit(cuda, case):
-    if case.startswith("bsr_dense"):
+    if case == "subpack":
+        args = tensors(*subpack_inputs(num_panels=40, ph=32, k=128, H=1000,
+                                       Tp=64, signed=True), device=cuda)
+
+        def run():
+            return dk.subpack(*args, subblock_width=32)
+    elif case.startswith("bsr_dense"):
         G = int(case.split("=")[1])
         args = tensors(*bsr_inputs(num_panels=40, ph=32, k=128, n_cols=1000,
                                    T=64, G=G, signed=True), device=cuda)
