@@ -47,8 +47,7 @@ from bsmr_sddmm_tpu_torch.formats import CSR, make_dense, random_mask
 from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, make_sddmm_body
 from bsmr_sddmm_tpu_torch.pack import TilePlan, pack_tiles
 from bsmr_sddmm_tpu_torch.reorder import BsmrReordering, bsmr, split_columns
-from bsmr_sddmm_tpu_torch.utils.timing import (time_cuda, time_cuda_graph,
-                                               time_host)
+from bsmr_sddmm_tpu_torch.utils.timing import time_cuda_graph, time_host
 
 #: Measured v5e tier costs: per-unit cost is an affine function of K
 #: (cost = base + k_slope * K), because each tier's bytes scale with K
@@ -336,9 +335,10 @@ def choose_config(csr: CSR, row_reorder_fn, config: SddmmConfig,
 
 
 def _refine_measure(kept, config: SddmmConfig, k: int, device):
-    """Time each candidate plan's rphm body on ``device`` (CUDA events,
-    ``max(4, num_iterations // 2)`` calls); return the list re-sorted by
-    measured ms, or None when ``device`` is not a CUDA device (the
+    """Time each candidate plan's rphm body on ``device`` (a replayed CUDA
+    graph of one call, ``max(4, num_iterations // 2)`` replays a round, as
+    ``BsmrSddmm.benchmark`` times its headline); return the list re-sorted
+    by measured ms, or None when ``device`` is not a CUDA device (the
     estimate ordering is kept). A candidate that fails to build or launch
     raises: a kernel fault must not hide behind an estimate."""
     if device is None or torch.device(device).type != "cuda":
@@ -355,8 +355,8 @@ def _refine_measure(kept, config: SddmmConfig, k: int, device):
         cfg = config.replace(subpack_min_nnz=sub)
         body = make_sddmm_body(plan, cfg, None, emit="rphm")
         dplan = device_plan(plan, device, emit="rphm")
-        ms, _ = time_cuda(body, A, Bt, dplan,
-                          iterations=max(4, config.num_iterations // 2))
+        ms, _ = time_cuda_graph(body, A, Bt, dplan,
+                                iterations=max(4, config.num_iterations // 2))
         out.append((ms, alpha, d, sub, plan))
     out.sort(key=lambda t: t[0])
     return out

@@ -7,10 +7,12 @@ original exposes its knobs as CLI flags (-f/-k/-a/-d/-t/-l,
 include/Options.hpp:38-43) plus compile-time tile macros; here every knob is
 a runtime dataclass field.
 
-Fields that only steer XLA in the JAX package are kept for parity and are
-not read by this package: ``tier_serialize``, ``tier_memory_mb`` and
-``residual_chunk`` (beyond bucketing the residual length in ``pack``), and
-``matmul_precision`` (every tier here accumulates in full fp32).
+``tier_memory_mb`` is read as the JAX body reads it: the residual and the
+unfused gathered tier run in row chunks (``dense_chunk`` / ``residual_chunk``
+buckets) above it. Fields that only steer XLA in the JAX package are kept
+for parity and are not read by this package: ``tier_serialize`` and
+``matmul_precision`` (every tier here, and every SpMM of ``ops.graph_rphm``,
+accumulates in full fp32).
 """
 
 from __future__ import annotations
@@ -131,9 +133,12 @@ class SddmmConfig:
     backend: str = "auto"
     # Tile counts are padded to multiples of this chunk (pack.exec_size).
     dense_chunk: int = 512
-    # Residual entry counts are padded to multiples of this chunk.
+    # Residual entry counts are padded to multiples of this chunk, and the
+    # residual runs in chunks of it (or of E/32) above tier_memory_mb.
     residual_chunk: int = 1 << 16
-    # Live-intermediate budget of the JAX package's XLA tiers; not read.
+    # Budget of one tier's intermediates: the residual's (E, K) operand pair
+    # and the unfused gathered tier's (Tg, bw, K) B rows are built in row
+    # chunks above it.
     tier_memory_mb: int = 384
     # Pad tile/residual counts up to buckets (powers of two between
     # min_bucket and exact).

@@ -1,10 +1,13 @@
-"""Carry a plan and a config across from the JAX package.
+"""Carry a plan, a config and model parameters across from the JAX package.
 
 ``plan_from_reference`` and ``config_from_reference`` build this package's
 ``TilePlan`` and ``SddmmConfig`` from ``bsmr_sddmm_tpu``'s objects by
-reading their attributes as NumPy arrays and Python values. They are
+reading their attributes as NumPy arrays and Python values;
+``params_from_reference`` turns a JAX params pytree into the nested dict of
+tensors that ``models.*.make_forward(params=...)`` takes. They are
 duck-typed: this module imports nothing from ``bsmr_sddmm_tpu`` (which
-would import JAX), so the tests can hand the *same* plan to both bodies.
+would import JAX), so the tests can hand the *same* plan and weights to
+both packages.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.pack import TilePlan
@@ -45,3 +49,12 @@ def config_from_reference(ref_cfg) -> SddmmConfig:
           for f in dataclasses.fields(SddmmConfig)}
     kw["backend"] = _BACKENDS[kw["backend"]]
     return SddmmConfig(**kw)
+
+
+def params_from_reference(params):
+    """The JAX package's model params (any nesting of dicts of arrays) as
+    the same nesting of CPU tensors, each array read with ``np.asarray``
+    and copied."""
+    if isinstance(params, dict):
+        return {name: params_from_reference(v) for name, v in params.items()}
+    return torch.from_numpy(np.array(np.asarray(params)))

@@ -18,15 +18,19 @@ The counterpart of ``bsmr_sddmm_tpu.ops.sddmm`` (``device_plan``,
 The output is the four tiers' arrays (``emit="rphm"``) or one gather of
 their concatenation along ``rphm_to_csr`` (``emit="csr"``, CSR value order).
 The residual and the unfused gathered tier are plain torch (the JAX package
-leaves them to XLA too). The JAX body's gather windows (``g_groups``,
-``res_groups``) avoid a gather-rate cliff of its TPU; here those plans run
-by absolute index, which gives the same values. Padded tail slots are
-computed from valid pad indices; no slot past a tier's real count is ever
-read by ``rphm_to_csr``.
+leaves them to XLA too). They read ``config.tier_memory_mb`` as the JAX body
+does: above ``E*K*8`` bytes (residual) or ``Tg*bw*K*4`` bytes (gathered) they
+run in row chunks, which changes no value. The JAX body's gather windows
+(``g_groups``, ``res_groups``) avoid a gather-rate cliff of its TPU; here
+those plans run by absolute index, which gives the same values. Padded tail
+slots are computed from valid pad indices; no slot past a tier's real count
+is ever read by ``rphm_to_csr``. ``make_batched_sddmm_fn`` runs one plan over
+a leading batch dimension.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -60,6 +64,18 @@ class DevicePlan(NamedTuple):
     res_col: torch.Tensor           # (E,)
     res_out: torch.Tensor           # (E,)
     rphm_to_csr: torch.Tensor       # (nnz,)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; by default the CUDA device, and an
+    error where there is none (the CPU runs only when asked for)."""
+    if device is not None:
+        return torch.device(device)
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(
+        "no CUDA device: pass device='cpu' (or CPU tensors) to run the "
+        "kernels' plain versions on the CPU")
 
 
 def device_plan(plan: TilePlan, device, emit: str = "csr") -> DevicePlan:
@@ -161,18 +177,34 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
         return packed_op(A_panels, Bt, dplan.sp_colperm, dplan.sp_panel,
                          dplan.sp_sub, subblock_width=sw, out_dtype=out_dt)
 
+    budget = config.tier_memory_mb << 20
+    E = plan.res_arow.shape[0]
+    # row chunks above the budget, as the JAX body cuts them
+    # (bsmr_sddmm_tpu/ops/sddmm.py:464-479, 515-527)
+    g_step = max(Tg, 1) if Tg * bw * k * 4 <= budget else _big_chunk(
+        Tg, config.dense_chunk)
+    r_step = max(E, 1) if E * k * 8 <= budget else _big_chunk(
+        E, config.residual_chunk)
+
     def gathered_out(A_panels, Bt, dplan):
         if fused:
             return fused_op(A_panels, Bt, dplan.g_panel, dplan.g_cols,
                             out_dtype=out_dt)
-        b = Bt.index_select(0, dplan.g_cols.reshape(-1)).reshape(Tg, bw, k)
-        a = A_panels.index_select(0, dplan.g_panel)
-        return torch.bmm(a, b.transpose(1, 2)).to(out_dt)
+        parts = []
+        for s in range(0, Tg, g_step):
+            cols = dplan.g_cols[s:s + g_step]
+            b = Bt.index_select(0, cols.reshape(-1)).reshape(-1, bw, k)
+            a = A_panels.index_select(0, dplan.g_panel[s:s + g_step])
+            parts.append(torch.bmm(a, b.transpose(1, 2)).to(out_dt))
+        return _joined(parts, (0, ph, bw), A_panels, out_dt)
 
     def residual_out(A_perm, Bt, dplan):
-        a = A_perm.index_select(0, dplan.res_arow)
-        b = Bt.index_select(0, dplan.res_col)
-        return (a * b).sum(-1).to(out_dt)
+        parts = []
+        for s in range(0, E, r_step):
+            a = A_perm.index_select(0, dplan.res_arow[s:s + r_step])
+            b = Bt.index_select(0, dplan.res_col[s:s + r_step])
+            parts.append((a * b).sum(-1).to(out_dt))
+        return _joined(parts, (0,), A_perm, out_dt)
 
     def fn(A: torch.Tensor, Bt: torch.Tensor, dplan: DevicePlan):
         A = A.to(torch.float32)
@@ -195,6 +227,59 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
             return tiers
         big = torch.cat([t.reshape(-1) for t in tiers])
         return big.index_select(0, dplan.rphm_to_csr)
+
+    return fn
+
+
+#: the JAX package's jitted entry point; PyTorch runs eagerly, so it is the
+#: body itself
+make_sddmm_fn = make_sddmm_body
+
+
+def _chunk_of(n: int, want: int) -> int:
+    """Largest chunk <= want that divides n exactly, else the gcd (the JAX
+    body's ``_chunk_of``)."""
+    c = max(8, min(want, n))
+    return c if n % c == 0 else max(math.gcd(n, c), 1)
+
+
+def _big_chunk(n: int, want: int) -> int:
+    """The JAX body's chunk above the tier budget: ``n // 32`` rows where
+    that is larger than the config's bucket and divides ``n``, else the
+    bucket."""
+    c = _chunk_of(n, want)
+    big = max(c, n // 32)
+    return big if n % big == 0 else c
+
+
+def _joined(parts, empty_shape, like: torch.Tensor, dtype) -> torch.Tensor:
+    """One chunk as it is; several concatenated; none an empty tier."""
+    if not parts:
+        return like.new_empty(empty_shape, dtype=dtype)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def make_batched_sddmm_fn(plan: TilePlan, config: SddmmConfig,
+                          backend: Optional[str] = None,
+                          emit: str = "csr") -> Callable:
+    """Batched SDDMM over a leading Z dimension of both operands, one plan
+    shared by the batch (``bsmr_sddmm_tpu.ops.sddmm.make_batched_sddmm_fn``;
+    the CUDA original's sddmm_gpu_batch, src/sddmmKernel.cu:2764-2850):
+    ``fn(A (Z, M, K), Bt (Z, N, K), dplan)``. The body runs once per batch
+    element, so on the card every element goes through the hand kernels,
+    and the results are stacked: ``(Z, nnz)`` for ``emit="csr"``, each of
+    the four tiers stacked along Z for ``emit="rphm"``."""
+    body = make_sddmm_body(plan, config, backend, emit=emit)
+
+    def fn(A: torch.Tensor, Bt: torch.Tensor, dplan: DevicePlan):
+        if A.dim() != 3 or Bt.dim() != 3 or A.shape[0] != Bt.shape[0]:
+            raise ValueError(f"batched SDDMM needs A (Z, M, K) and Bt "
+                             f"(Z, N, K), got {tuple(A.shape)} and "
+                             f"{tuple(Bt.shape)}")
+        outs = [body(A[z], Bt[z], dplan) for z in range(A.shape[0])]
+        if emit == "rphm":
+            return tuple(torch.stack(tier) for tier in zip(*outs))
+        return torch.stack(outs)
 
     return fn
 

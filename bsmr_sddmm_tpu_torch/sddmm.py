@@ -26,13 +26,14 @@ from bsmr_sddmm_tpu_torch.cache import cached_row_reordering
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import CSR
 from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
-                                            sddmm_ref)
+                                            resolve_device, sddmm_ref)
 from bsmr_sddmm_tpu_torch.pack import TilePlan, pack_tiles
 from bsmr_sddmm_tpu_torch.reorder import (BsmrReordering, row_reordering,
                                           split_columns)
 from bsmr_sddmm_tpu_torch.utils.checkdata import check_data
 from bsmr_sddmm_tpu_torch.utils.logger import RunLog
-from bsmr_sddmm_tpu_torch.utils.timing import time_cuda, time_host
+from bsmr_sddmm_tpu_torch.utils.timing import (time_cuda, time_cuda_graph,
+                                               time_host)
 
 
 def _device_name(device: torch.device) -> str:
@@ -66,11 +67,7 @@ class BsmrSddmm:
             return self.device
         if isinstance(A, torch.Tensor):
             return A.device
-        if torch.cuda.is_available():
-            return torch.device("cuda")
-        raise RuntimeError(
-            "no CUDA device: pass device='cpu' (or CPU tensors) to run the "
-            "kernels' plain versions on the CPU")
+        return resolve_device()
 
     def _operands(self, A, B, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """A (M, K) and Bt (N, K) as float32 tensors on ``device``; B may
@@ -204,12 +201,19 @@ class BsmrSddmm:
         headline (``tier_overlap_efficiency``). ``delta="auto"`` logs the
         chosen alpha and delta (and, as the JAX package does, the base row
         reordering's clusters and times); a dense-fallback run logs
-        ``delta=nan`` and ``strategy=dense_fallback``."""
+        ``delta=nan`` and ``strategy=dense_fallback``.
+
+        On a CUDA device each time of the tiled body is a replayed CUDA
+        graph of one call (``time_cuda_graph``): one host launch per call,
+        the card's form of the JAX package's in-program repetition, which
+        leaves submission out. The rphm body's time over eager calls, host
+        enqueue included, goes into ``extras["sddmm_eager_ms"]``. The dense
+        fallback is timed the same two ways."""
         cfg = self.config
         device = self._device_for(A)
         A_t, Bt_t = self._operands(A, B, device)
         k = A_t.shape[1]
-        timer = time_cuda if device.type == "cuda" else time_host
+        timer = time_cuda_graph if device.type == "cuda" else time_host
         alpha, delta, plan = self._auto(alpha, delta, k, device)
         if delta == "dense":
             return self._benchmark_dense(A, B, A_t, Bt_t, alpha=alpha,
@@ -220,8 +224,11 @@ class BsmrSddmm:
         else:
             reord = self._row_reordering(alpha)
         dplan = device_plan(plan, device, emit="rphm")
-        ms, _ = timer(self.compile(plan, backend, emit="rphm"), A_t, Bt_t,
-                      dplan, iterations=cfg.num_iterations)
+        body = self.compile(plan, backend, emit="rphm")
+        ms, _ = timer(body, A_t, Bt_t, dplan, iterations=cfg.num_iterations)
+        eager_ms = (time_cuda(body, A_t, Bt_t, dplan,
+                              iterations=cfg.num_iterations)[0]
+                    if device.type == "cuda" else ms)
         ms_csr, out = 0.0, None
         if time_csr_emit or validate:
             fn = self.compile(plan, backend, emit="csr")
@@ -255,6 +262,7 @@ class BsmrSddmm:
             pack_ms=plan.pack_time_ms,
             sddmm_ms=ms,
         )
+        log.extras["sddmm_eager_ms"] = f"{eager_ms:.6f}"
         log.extras["sddmm_csr_ms"] = f"{ms_csr:.6f}"
         log.extras["gflops_csr"] = (
             f"{2.0 * self.csr.nnz * k / (ms_csr * 1e6):.3f}"
@@ -283,12 +291,19 @@ class BsmrSddmm:
     def _benchmark_dense(self, A, B, A_t, Bt_t,
                          alpha: Optional[float] = None,
                          validate: bool = False, file: str = "") -> RunLog:
-        """Timed dense-fallback run: no reordering, no packing."""
+        """Timed dense-fallback run: no reordering, no packing; on a CUDA
+        device a replayed graph of one call, as the tiled headline."""
         cfg = self.config
         k = A_t.shape[1]
-        timer = time_cuda if A_t.is_cuda else time_host
-        ms, out = timer(self.dense_fn(k), A_t, Bt_t,
-                        iterations=cfg.num_iterations)
+        fn = self.dense_fn(k)
+        if A_t.is_cuda:
+            ms, out = time_cuda_graph(fn, A_t, Bt_t,
+                                      iterations=cfg.num_iterations)
+            eager_ms = time_cuda(fn, A_t, Bt_t,
+                                 iterations=cfg.num_iterations)[0]
+        else:
+            ms, out = time_host(fn, A_t, Bt_t, iterations=cfg.num_iterations)
+            eager_ms = ms
         log = RunLog(
             file=file,
             device=_device_name(A_t.device),
@@ -301,6 +316,7 @@ class BsmrSddmm:
             sddmm_ms=ms,
         )
         log.extras["strategy"] = "dense_fallback"
+        log.extras["sddmm_eager_ms"] = f"{eager_ms:.6f}"
         if validate:
             self._validate(log, A, B, out)
         return log

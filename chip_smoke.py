@@ -27,7 +27,11 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    then one pipe.run() per run counts each kernel's launches per call,
    and torch.profiler over 20 calls of the bsr and the reorder body on
    banded_mesh_32k gives device busy time, host enqueue time, each
-   device kernel's share and the index_select calls per call ([profile]);
+   device kernel's share and the index_select calls per call ([profile]).
+   benchmark() times a replayed CUDA graph of one call (sddmm_ms), printed
+   beside the eager calls' time (sddmm_eager_ms, host enqueue included);
+   the banded bsr run's sddmm_ms must read within HEADLINE_RTOL of
+   [profile]'s device busy for that body;
 5. autotune: on banded_mesh_32k and community_20k at K=128, subpack 12,
    BsmrSddmm.choose(alpha="auto", refine_top=4) priced with V5E_COSTS: the
    pick of its estimates, each candidate's measured ms and the measured
@@ -45,7 +49,24 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    -a 0.3 -d 0.002 --validate exits 0, and so do the run with
    --col-mode reorder -d 0.05 --evaluate --tier-times --reorder-cache
    (BSMR_CACHE_DIR in a temporary directory) and the run with --auto-alpha
-   --refine-top 3, which writes the BSMR_k_128_a_auto_d_auto log.
+   --refine-top 3, which writes the BSMR_k_128_a_auto_d_auto log;
+9. train: the sparse transformer (seq_len 2048, vocab 64, head_dim 128, 2
+   heads, 1 layer, window 128, stride 64, SddmmConfig(k=128, delta=0.05))
+   through the hand kernels: logits and every parameter's gradient against
+   the same net built on the plain versions (backend="torch"), three Adam
+   steps whose last loss is below the first, ms per step (CUDA events after
+   a warm-up step) and one step's torch.profiler split (hand kernels, the
+   rest of the SDDMM body, backward SpMMs, the rest); then the graph
+   transformer on community_20k (20000 nodes, features 16, head_dim 128,
+   4 heads, 2 layers, 8 classes; SddmmConfig(k=128, alpha=0.1,
+   delta=0.002, subpack_min_nnz=12)): logits and gradients against the
+   plain build; one head's output and its q, k, v gradients against the
+   CSR oracles of ops.graph under autograd, which share no code with the
+   tile layout; one Adam step at GRAPH_SMALL_LR that must lower the loss
+   from the same weights (put back after it); then train steps at the
+   default lr with a finite loss and their profile split;
+10. batched: make_batched_sddmm_fn at Z=4 on the community_20k plan, K=128,
+   against four single calls of the body.
 
 Every phase that runs the pipeline sets the launch counters to 0 just before
 it and requires a launch of each kernel its plans use just after.
@@ -392,6 +413,7 @@ def main_path(bt, dev, suite, results, picks):
             f"delta={delta} {od}: "
             f"check {log.check_result} (error rate {log.error_rate}); "
             f"sddmm_ms {log.sddmm_ms:.4f} ({log.gflops:.1f} GFLOPS), "
+            f"sddmm_eager_ms {log.extras['sddmm_eager_ms']}, "
             f"sddmm_csr_ms {log.extras['sddmm_csr_ms']} "
             f"({log.extras['gflops_csr']} GFLOPS); "
             f"M=N={csr.rows} nnz={csr.nnz} G={log.extras['fat_group']} "
@@ -430,12 +452,25 @@ PROFILE = (("bsr", dict(alpha=0.3, delta=0.002)),
 PROFILE_CALLS = 20
 
 
-def profile_phase(torch, bt, dev, csr):
+def kernel_rows(prof):
+    """(name, device us) of each device kernel in a torch.profiler trace:
+    device rows only (an aten op's row repeats its kernels' time), and not
+    the device spans of user annotations (record_function ranges such as
+    bsmr::spmm_backward or the optimizer's step), which cover idle time."""
+    from torch.autograd import DeviceType
+    return [(e.key, getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("bsmr::", "Optimizer."))]
+
+
+def profile_phase(torch, bt, dev, csr, busy_ms):
     """torch.profiler over PROFILE_CALLS calls of the rphm body on
     banded_mesh_32k at K=128, bsr and reorder: device busy time, host
-    enqueue time and each device kernel's share per call. Reports; fails
-    only if the body does."""
-    from torch.autograd import DeviceType
+    enqueue time and each device kernel's share per call, the busy time
+    into ``busy_ms[mode]``. Reports; fails only if the body does."""
     from torch.profiler import ProfilerActivity, profile
     from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, make_sddmm_body
     A = torch.from_numpy(bt.make_dense(csr.rows, 128, seed=1337)).to(dev)
@@ -457,18 +492,15 @@ def profile_phase(torch, bt, dev, csr):
             enqueue = time.perf_counter() - t0
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        # device kernels only: an aten op's row repeats its kernels' time
-        rows = [(e.key, getattr(e, "self_device_time_total", None)
-                 or getattr(e, "self_cuda_time_total", 0))
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        rows = sorted(((key, us / PROFILE_CALLS / 1e3) for key, us in rows
+        rows = sorted(((key, us / PROFILE_CALLS / 1e3)
+                       for key, us in kernel_rows(prof)
                        if us > 0), key=lambda kv: -kv[1])
         busy = sum(ms for _, ms in rows)
         if not busy:
             say(f"[profile] banded_mesh_32k {mode}: no device time in the "
                 f"trace: not measured")
             continue
+        busy_ms[mode] = busy
         say(f"[profile] banded_mesh_32k K=128 {mode} {arm}, per call over "
             f"{PROFILE_CALLS} calls (profiler on): wall "
             f"{wall * 1e3 / PROFILE_CALLS:.4f} ms, host enqueue "
@@ -550,7 +582,8 @@ def run_arm(bt, pipe, results, name, tag, **kw):
         f"): alpha={log.alpha} delta={log.delta} subpack="
         f"{'auto' if kw.get('delta') == 'auto' else pipe.config.subpack_min_nnz} "
         f"{log.extras.get('strategy', 'tiled')}: check {log.check_result}; "
-        f"sddmm_ms {log.sddmm_ms:.4f} ({log.gflops:.1f} GFLOPS); tiles dense "
+        f"sddmm_ms {log.sddmm_ms:.4f} ({log.gflops:.1f} GFLOPS; eager "
+        f"{float(log.extras['sddmm_eager_ms']):.4f}); tiles dense "
         f"{log.num_dense_blocks} packed {log.num_packed_blocks} gathered "
         f"{log.num_gathered_blocks} residual nnz {log.residual_nnz}; wall "
         f"{wall:.1f} s; launches {launches}")
@@ -814,6 +847,371 @@ def dense_phase(bt, dev, results):
     return failures + found
 
 
+#: the banded bsr run's sddmm_ms (a replayed CUDA graph) against the device
+#: busy time [profile] reads for the same body: a replay adds the gaps
+#: between its ~10 kernels, which busy time leaves out
+HEADLINE_RTOL = 0.15
+
+
+def check_headline(picks, busy_ms) -> list:
+    """[main]: the banded bsr run's sddmm_ms within HEADLINE_RTOL of
+    [profile]'s device busy for that body."""
+    ms = picks["banded_mesh_32k"]["fixed arm"][3]
+    busy = busy_ms.get("bsr")
+    if busy is None:
+        return ["headline: [profile] read no device time for the bsr body"]
+    off = ms / busy - 1
+    say(f"[main] banded_mesh_32k bsr: sddmm_ms {ms:.4f} against device busy "
+        f"{busy:.4f} ms ({off:+.1%}; limit {HEADLINE_RTOL:.0%})")
+    if abs(off) > HEADLINE_RTOL:
+        return [f"headline: sddmm_ms {ms:.4f} is {off:+.1%} off device busy "
+                f"{busy:.4f} ms"]
+    return []
+
+
+# the training path: models at the sizes the JAX package trains on hardware
+# (.claude/skills/verify/SKILL.md, scripts/verify_drive.py:85-87) and the
+# graph transformer on the SUITE graph-community stand-in
+SEQ_MODEL = dict(seq_len=2048, vocab_size=64, head_dim=128, num_heads=2,
+                 num_layers=1)
+SEQ_MASK = dict(window=128, stride=64)
+GRAPH_MODEL = dict(num_nodes=20000, feature_dim=16, head_dim=128)
+GRAPH_CFG = dict(k=128, alpha=0.1, delta=0.002, subpack_min_nnz=12)
+# kernels vs plain on the same weights: logits to rtol/atol LOGIT_TOL, each
+# parameter's gradient to rtol 1e-3 and atol 1e-4 x its largest |g| (the
+# CPU tests' tolerance against the JAX package). The kernels' three TF32
+# passes agree with fp32 products to a few ulps of each sum, and index_add
+# on the card sums in no fixed order.
+LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-3, 1e-4
+#: the graph transformer's descent check (its timed steps take the JAX
+#: package's default, 1e-3)
+GRAPH_SMALL_LR = 1e-5
+#: substrings of the hand kernels' device names
+HAND = ("bsr_resident_kernel", "bsr_stream_kernel", "subpack_kernel",
+        "gathered_tile_kernel")
+
+
+def max_err(torch, got, want):
+    """(max |got - want|, ok at LOGIT_TOL)."""
+    diff = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def grad_errors(net, plain):
+    """Per parameter: (name, max |g - g_plain|, its limit)."""
+    out = []
+    for (name, p), (_, q) in zip(net.named_parameters(),
+                                 plain.named_parameters()):
+        diff = (p.grad - q.grad).abs()
+        limit = GRAD_ATOL_SCALE * float(q.grad.abs().max()) \
+            + GRAD_RTOL * q.grad.abs()
+        out.append((name, float(diff.max()), bool((diff <= limit).all())))
+    return out
+
+
+def step_split(torch, step, *args):
+    """One train step under torch.profiler: device ms in the hand kernels,
+    in the rest of the SDDMM body (bsmr::sddmm_body), in the backward
+    SpMMs (bsmr::spmm_backward) and in the rest; and the step's loss."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss = step(*args)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    total = sum(us for _, us in rows) / 1e3
+    hand = sum(us for key, us in rows if any(h in key for h in HAND)) / 1e3
+    by_label = {}
+
+    def walk(ev, label):
+        if ev.name.startswith("bsmr::"):
+            label = ev.name
+        for k in ev.kernels:
+            if not any(h in k.name for h in HAND):
+                by_label[label] = by_label.get(label, 0.0) + k.duration / 1e3
+        for child in ev.cpu_children:
+            walk(child, label)
+
+    for ev in prof.events():
+        if ev.cpu_parent is None and ev.device_type == DeviceType.CPU:
+            walk(ev, "rest")
+    body = by_label.get("bsmr::sddmm_body", 0.0)
+    spmm = by_label.get("bsmr::spmm_backward", 0.0)
+    top = sorted(rows, key=lambda kv: -kv[1])[:8]
+    return dict(total=total, hand=hand, body=body, spmm=spmm,
+                rest=total - hand - body - spmm,
+                top=[(key, us / 1e3) for key, us in top]), loss
+
+
+def say_split(tag, split, smi):
+    if not split["total"]:
+        say(f"[train] {tag}: no device time in the trace: not measured")
+        return
+    parts = ", ".join(
+        f"{label} {split[key]:.3f} ms ({split[key] / split['total']:.0%})"
+        for key, label in (("hand", "hand kernels"),
+                           ("body", "rest of the SDDMM body"),
+                           ("spmm", "backward SpMMs"), ("rest", "the rest")))
+    say(f"[train] {tag} one step under torch.profiler: device busy "
+        f"{split['total']:.3f} ms: {parts}; {smi}")
+    for key, ms in split["top"]:
+        say(f"[train]   {ms:.3f} ms {ms / split['total']:5.1%}  {key[:100]}")
+
+
+def head_against_csr(torch, head_fn, dplan, csr, k, dev):
+    """One attention head at full size through the tile layout (the hand
+    kernels forward, the tile-layout products backward) against the CSR
+    oracles of ``ops.graph``, which autograd differentiates as they are and
+    which share no code with the tile layout: (max |out err|, the worst
+    gradient's (name, max err), ok at LOGIT_TOL and the gradient
+    tolerance)."""
+    import numpy as np
+    from bsmr_sddmm_tpu_torch.ops import graph
+    rng = np.random.default_rng(3)
+    q, kk, v, w = (torch.from_numpy(rng.standard_normal((n, k)).astype(
+        np.float32)).to(dev) for n in (csr.rows, csr.cols, csr.cols,
+                                       csr.rows))
+    seg = torch.from_numpy(graph.csr_segment_ids(csr)).to(dev)
+    col = torch.from_numpy(csr.col_indices.astype(np.int64)).to(dev)
+
+    def oracle(q, kk, v, _):
+        s = (q.index_select(0, seg) * kk.index_select(0, col)).sum(1)
+        alpha = graph.edge_softmax(s / math.sqrt(k), seg, csr.rows)
+        return graph.spmm(alpha, col, seg, v, csr.rows)
+
+    runs = []
+    for fn in (head_fn, oracle):
+        xs = [x.clone().requires_grad_() for x in (q, kk, v)]
+        out = fn(*xs, dplan)
+        (out * w).sum().backward()
+        runs.append((out.detach(), [x.grad for x in xs]))
+    (out, grads), (want, wgrads) = runs
+    err, ok = max_err(torch, out, want)
+    worst = ("", 0.0)
+    for name, g, wg in zip(("dq", "dk", "dv"), grads, wgrads):
+        diff = (g - wg).abs()
+        limit = GRAD_ATOL_SCALE * float(wg.abs().max()) \
+            + GRAD_RTOL * wg.abs()
+        ok = ok and bool((diff <= limit).all())
+        worst = max(worst, (name, float(diff.max())), key=lambda x: x[1])
+    return err, worst, ok
+
+
+def train_phase(torch, bt, dev, csr, results, smi):
+    """Phase 9: both model families trained through the hand kernels (the
+    graph transformer on ``csr``, community_20k)."""
+    import numpy as np
+    from bsmr_sddmm_tpu_torch.models import graph_transformer as gt
+    from bsmr_sddmm_tpu_torch.models import sparse_transformer as st
+    failures = []
+    # --- sparse transformer -------------------------------------------
+    model = st.SparseTransformer(**SEQ_MODEL)
+    cfg = bt.SddmmConfig(k=128, delta=0.05)
+    t0 = time.perf_counter()
+    net, dplan, plan = st.make_forward(model, config=cfg, device=dev,
+                                       **SEQ_MASK)
+    plain, pdplan, _ = st.make_forward(model, config=cfg.replace(
+        backend="torch"), device=dev, **SEQ_MASK)
+    say(f"[train] sparse transformer {SEQ_MODEL} {SEQ_MASK}: mask nnz "
+        f"{plan.nnz}, G={plan.fat_group} tiles dense {plan.num_tiles} "
+        f"packed {plan.num_packed} gathered {plan.num_gathered} residual nnz "
+        f"{plan.residual_nnz}; two nets built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.vocab_size, model.seq_len)).to(dev)
+    want = tuple(k for k, n in (("bsr_dense", plan.num_tiles),
+                                ("subpack", plan.num_packed)) if n)
+    zero_launches()
+    with torch.no_grad():
+        logits = net(tokens, dplan)
+    st.loss_fn(net, tokens, dplan).backward()
+    torch.cuda.synchronize()
+    launches = read_launches(results)
+    with torch.no_grad():
+        err, ok = max_err(torch, logits, plain(tokens, pdplan))
+    st.loss_fn(plain, tokens, pdplan).backward()
+    grads = grad_errors(net, plain)
+    worst = max(grads, key=lambda g: g[1])
+    say(f"[train]   kernels vs plain: logits max_abs {err:.3e} "
+        f"({'ok' if ok else 'MISMATCH'} at {LOGIT_TOL}); gradients of "
+        f"{len(grads)} parameters, largest max_abs {worst[1]:.3e} "
+        f"({worst[0]}), {'all ok' if all(g[2] for g in grads) else 'MISMATCH'}"
+        f" at rtol {GRAD_RTOL} + atol {GRAD_ATOL_SCALE} x max|g|; launches "
+        f"{launches}")
+    if not ok:
+        failures.append(f"train sparse: logits off by {err:.3e}")
+    failures += [f"train sparse: gradient of {n} off by {e:.3e}"
+                 for n, e, good in grads if not good]
+    failures += [f"train sparse: {k} never launched" for k in want
+                 if launches[k] <= 0]
+    del plain, pdplan, logits
+    opt_init, step = st.make_train_step(model, net)
+    opt = opt_init()
+    zero_launches()
+    losses = [step(opt, tokens, dplan)]                 # warm-up step
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [step(opt, tokens, dplan) for _ in range(2)]
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 2
+    launches = read_launches(results)
+    split, extra = step_split(torch, step, opt, tokens, dplan)
+    losses = [float(x) for x in losses] + [float(extra)]
+    say(f"[train]   Adam steps: losses {[round(x, 5) for x in losses]}; "
+        f"{step_ms:.3f} ms per step (CUDA events, steps 2-3); launches "
+        f"{launches}")
+    say_split("sparse transformer", split, smi)
+    if not (all(math.isfinite(x) for x in losses) and losses[2] < losses[0]):
+        failures.append(f"train sparse: losses {losses}")
+    failures += [f"train sparse steps: {k} never launched" for k in want
+                 if launches[k] <= 0]
+    del net, opt
+    # --- graph transformer on community_20k -----------------------------
+    gmodel = gt.GraphTransformer(**GRAPH_MODEL)
+    gcfg = bt.SddmmConfig(**GRAPH_CFG)
+    t0 = time.perf_counter()
+    gnet, gdplan, gplan = gt.make_forward(gmodel, csr, config=gcfg,
+                                          device=dev)
+    gplain, gpdplan, _ = gt.make_forward(gmodel, csr, config=gcfg.replace(
+        backend="torch"), device=dev)
+    say(f"[train] graph transformer {GRAPH_MODEL} (4 heads, 2 layers, 8 "
+        f"classes) on community_20k {GRAPH_CFG}: G={gplan.fat_group} tiles "
+        f"dense {gplan.num_tiles} packed {gplan.num_packed} gathered "
+        f"{gplan.num_gathered} residual nnz {gplan.residual_nnz}; two nets "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.standard_normal(
+        (gmodel.num_nodes, gmodel.feature_dim)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(
+        0, gmodel.num_classes, gmodel.num_nodes)).to(dev)
+    gwant = tuple(k for k, n in (("bsr_dense", gplan.num_tiles),
+                                 ("subpack", gplan.num_packed)) if n)
+    zero_launches()
+    with torch.no_grad():
+        got = gnet(X, gdplan)
+    gt.loss_fn(gnet, X, labels, gdplan).backward()
+    torch.cuda.synchronize()
+    launches = read_launches(results)
+    with torch.no_grad():
+        err, ok = max_err(torch, got, gplain(X, gpdplan))
+    gt.loss_fn(gplain, X, labels, gpdplan).backward()
+    grads = grad_errors(gnet, gplain)
+    worst = max(grads, key=lambda g: g[1])
+    say(f"[train]   kernels vs plain: logits max_abs {err:.3e} "
+        f"({'ok' if ok else 'MISMATCH'}); gradients of {len(grads)} "
+        f"parameters, largest max_abs {worst[1]:.3e} ({worst[0]}), "
+        f"{'all ok' if all(g[2] for g in grads) else 'MISMATCH'}; launches "
+        f"{launches}")
+    if not ok:
+        failures.append(f"train graph: logits off by {err:.3e}")
+    failures += [f"train graph: gradient of {n} off by {e:.3e}"
+                 for n, e, good in grads if not good]
+    failures += [f"train graph: {k} never launched" for k in gwant
+                 if launches[k] <= 0]
+    del gplain, gpdplan, got
+    # independent of the tile layout: one head against the CSR oracles
+    t0 = time.perf_counter()
+    err, (gname, gerr), ok = head_against_csr(torch, gnet.head_fn, gdplan,
+                                              csr, gmodel.head_dim, dev)
+    say(f"[train]   one head (q, k, v normal, K={gmodel.head_dim}) against "
+        f"the CSR oracles of ops.graph under autograd: out max_abs "
+        f"{err:.3e}, worst gradient {gname} max_abs {gerr:.3e}, "
+        f"{'ok' if ok else 'MISMATCH'} at {LOGIT_TOL} / rtol {GRAD_RTOL} + "
+        f"atol {GRAD_ATOL_SCALE} x max|g|; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        failures.append(f"train graph: head off the CSR oracles by {err:.3e}"
+                        f" / {gname} {gerr:.3e}")
+    # Adam's first step moves every weight by lr; at GRAPH_SMALL_LR it must
+    # lower the loss from the same weights, which are then put back
+    start_weights = {n: p.detach().clone() for n, p in gnet.named_parameters()}
+    opt_init, gstep = gt.make_train_step(gmodel, gnet, GRAPH_SMALL_LR)
+    small = [float(gstep(opt_init(), X, labels, gdplan))]
+    with torch.no_grad():
+        small.append(float(gt.loss_fn(gnet, X, labels, gdplan)))
+        for n, p in gnet.named_parameters():
+            p.copy_(start_weights[n])
+    say(f"[train]   one Adam step at lr {GRAPH_SMALL_LR}: loss {small[0]:.5f}"
+        f" -> {small[1]:.5f}")
+    if not small[1] < small[0]:
+        failures.append(f"train graph: lr {GRAPH_SMALL_LR} step took the "
+                        f"loss {small[0]} -> {small[1]}")
+    del start_weights
+    opt_init, gstep = gt.make_train_step(gmodel, gnet)
+    opt = opt_init()
+    zero_launches()
+    t0 = time.perf_counter()
+    loss = float(gstep(opt, X, labels, gdplan))
+    wall = time.perf_counter() - t0
+    launches = read_launches(results)
+    start.record()
+    loss2 = gstep(opt, X, labels, gdplan)
+    end.record()
+    end.synchronize()
+    split, loss3 = step_split(torch, gstep, opt, X, labels, gdplan)
+    say(f"[train]   Adam steps: losses {loss:.5f}, {float(loss2):.5f}, "
+        f"{float(loss3):.5f}; first step {wall:.2f} s wall, second "
+        f"{start.elapsed_time(end):.3f} ms (CUDA events); launches of the "
+        f"first {launches}")
+    say_split("graph transformer", split, smi)
+    if not math.isfinite(loss):
+        failures.append(f"train graph: loss {loss}")
+    failures += [f"train graph step: {k} never launched" for k in gwant
+                 if launches[k] <= 0]
+    return failures
+
+
+BATCH_Z = 4
+
+
+def batched_phase(torch, bt, dev, csr, results):
+    """Phase 10: make_batched_sddmm_fn at Z=BATCH_Z on the community_20k
+    plan at K=128 against BATCH_Z single calls of the body."""
+    import numpy as np
+    from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan,
+                                                make_batched_sddmm_fn,
+                                                make_sddmm_body)
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda_graph
+    cfg = bt.SddmmConfig(**GRAPH_CFG)
+    plan = bt.BsmrSddmm(csr, cfg, device=dev).plan()
+    dp = device_plan(plan, dev, emit="rphm")
+    A = torch.from_numpy(np.stack([bt.make_dense(csr.rows, 128, seed=1337 + z)
+                                   for z in range(BATCH_Z)])).to(dev)
+    Bt = torch.from_numpy(np.stack([
+        bt.make_dense(128, csr.cols, seed=2337 + z).T
+        for z in range(BATCH_Z)])).to(dev).contiguous()
+    fn = make_batched_sddmm_fn(plan, cfg, emit="rphm")
+    zero_launches()
+    got = fn(A, Bt, dp)
+    torch.cuda.synchronize()
+    launches = read_launches(results)
+    body = make_sddmm_body(plan, cfg, emit="rphm")
+    worst, ok = 0.0, True
+    for z in range(BATCH_Z):
+        for tier, one in zip(got, body(A[z], Bt[z], dp)):
+            err, _, good = compare(torch, tier[z], one, "float32")
+            worst, ok = max(worst, err), ok and good
+    batch_ms, _ = time_cuda_graph(fn, A, Bt, dp, iterations=10)
+    one_ms, _ = time_cuda_graph(body, A[0], Bt[0], dp, iterations=10)
+    say(f"[batched] community_20k K=128 Z={BATCH_Z} {GRAPH_CFG}: tiers "
+        f"{[tuple(t.shape) for t in got]}; against single calls max_abs "
+        f"{worst:.3e} ({'ok' if ok else 'MISMATCH'} at {TOL['float32']}); "
+        f"launches {launches}; {batch_ms:.4f} ms a batch (replayed graph), "
+        f"{one_ms:.4f} ms a single call")
+    failures = [] if ok else [f"batched: off by {worst:.3e}"]
+    failures += [f"batched: {k} launched {launches[k]} times, not {BATCH_Z}"
+                 for k, n in (("bsr_dense", plan.num_tiles),
+                              ("subpack", plan.num_packed))
+                 if n and launches[k] != BATCH_Z]
+    return failures
+
+
 def timed(phase, fn, *args) -> list:
     """Run one phase, print its wall time, return its failures."""
     t0 = time.perf_counter()
@@ -890,13 +1288,20 @@ def main() -> int:
     failures = main_path(bt, dev, suite, results, picks)
     if failures:
         fail(f"main path: {failures}")
-    timed("profile", profile_phase, torch, bt, dev, suite["banded_mesh_32k"])
-    failures = timed("autotune", autotune_phase, bt, dev, suite, results,
-                     picks)
+    busy_ms = {}
+    timed("profile", profile_phase, torch, bt, dev, suite["banded_mesh_32k"],
+          busy_ms)
+    failures = check_headline(picks, busy_ms)
+    failures += timed("autotune", autotune_phase, bt, dev, suite, results,
+                      picks)
     failures += timed("calibrate", calibrate_phase, torch, bt, dev, suite,
                       smi, results, picks)
     failures += timed("dense", dense_phase, bt, dev, results)
     failures += timed("cli", run_cli, bt, suite["community_20k"])
+    failures += timed("train", train_phase, torch, bt, dev,
+                      suite["community_20k"], results, smi)
+    failures += timed("batched", batched_phase, torch, bt, dev,
+                      suite["community_20k"], results)
     if failures:
         fail(f"{failures}")
     if "jax" in sys.modules:

@@ -859,6 +859,7 @@ def test_dense_fallback_on_cuda_passes(cuda):
     assert log.check_result == "pass"
     assert log.extras["strategy"] == "dense_fallback"
     assert log.device == torch.cuda.get_device_name(0) and log.sddmm_ms > 0
+    assert float(log.extras["sddmm_eager_ms"]) > 0   # beside the replay
     assert check_data(sddmm_ref(A, B, csr),
                       pipe.run(A, B, delta="dense")).passed
 

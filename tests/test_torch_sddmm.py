@@ -266,6 +266,7 @@ def test_benchmark_passes_and_matches_reference_log():
     ref = JBsmrSddmm(jcsr, JConfig(**kw)).benchmark(A, B, validate=True)
     assert log.check_result == "pass" and log.error_rate == 0.0
     assert log.device == "cpu"
+    assert float(log.extras["sddmm_eager_ms"]) > 0
     for name in ("num_clusters", "num_row_panels", "num_dense_blocks",
                  "num_packed_blocks", "num_gathered_blocks", "dense_nnz",
                  "packed_nnz", "gathered_nnz", "residual_nnz",
