@@ -15,7 +15,8 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    for this launch's bytes and operations), its share of the bound, the
    time of one library call (torch.bmm in fp32 on operands gathered
    before the timed window) and the plain version's: bsr_dense and subpack
-   on bsr plans (the plan's fat group G and G=1), dense_tile,
+   on bsr plans (the plan's fat group G and G=1), bsr_dense alone at K=64
+   (resident route) and K=256 (streaming route) on the fat plan, dense_tile,
    fused_gathered and subpack on col_mode="reorder" plans (alpha 0.3,
    delta 0.05), whose packed tier is the larger;
 4. main path: BsmrSddmm(csr, cfg).benchmark(A, B, validate=True) at K=128
@@ -66,7 +67,13 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    from the same weights (put back after it); then train steps at the
    default lr with a finite loss and their profile split;
 10. batched: make_batched_sddmm_fn at Z=4 on the community_20k plan, K=128,
-   against four single calls of the body.
+   against four single calls of the body;
+11. bench: bench.suite.run on banded_mesh_32k and community_20k at K 64,
+   128 and 256 with bench.py's R4_BEST arms (6 cells and an fp16 sibling,
+   each validated), bsr_dense's launches and route at each K, the per-K
+   geomean; then bench.runner.run_suite on community_20k saved as .mtx
+   (the CLI and the gather_dot baseline, each in a process of its own on
+   the card) read back by bench.analyze into a one-row results CSV.
 
 Every phase that runs the pipeline sets the launch counters to 0 just before
 it and requires a launch of each kernel its plans use just after.
@@ -289,18 +296,44 @@ def check_case(torch, dk, results, name, label, args, kw, keep):
     return failures
 
 
+def bsr_route(fat_group: int, block_width: int, k: int) -> str:
+    """The route csrc/bsr_dense.cu's launch() takes: the resident (wgmma)
+    route where G >= 2 and the column block with a 3- (else 2-) stage ring
+    fits kMaxSmem (resident_bytes), else the streaming (mma.sync) route;
+    the constants are read from the sources."""
+    src = HERE / PKG / "csrc"
+    c = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                             (src / f).read_text()).group(1))
+         for name, f in (("kPadK", "tile_mma.cuh"),
+                         ("kMaxSmem", "tile_mma.cuh"),
+                         ("kSlabK", "tile_wgmma.cuh"),
+                         ("kUnitRows", "bsr_dense.cu"))}
+
+    def resident_bytes(stages):
+        k32 = -(-k // c["kSlabK"]) * c["kSlabK"]
+        stride = ((k + 7) & ~7) + c["kPadK"]
+        return 1024 + 4 * (2 * block_width * k32
+                           + stages * c["kUnitRows"] * stride)
+
+    stages = 3 if resident_bytes(3) <= c["kMaxSmem"] else 2
+    if fat_group >= 2 and resident_bytes(stages) <= c["kMaxSmem"]:
+        return "resident (wgmma)"
+    return "streaming (mma.sync)"
+
+
 def check_kernels(torch, bt, dev, csr, results):
-    """Phase 3: bsr_dense and subpack at the shapes of bsr plans."""
+    """Phase 3: bsr_dense and subpack at the shapes of bsr plans; bsr_dense
+    alone at K=64 and K=256 (the depths the bench adds) on the fat plan."""
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan
     pipe = bt.BsmrSddmm(csr, bt.SddmmConfig(alpha=0.3, delta=0.002,
                                             subpack_min_nnz=12))
     failures = []
-    for k in (128, 32):
+    for k in (128, 32, 64, 256):
         A = torch.from_numpy(bt.make_dense(csr.rows, k, seed=1337)).to(dev)
         Bt = torch.from_numpy(
             bt.make_dense(k, csr.cols, seed=1338).T.copy()).to(dev)
-        for fat in (32, 1):
+        for fat in ((32, 1) if k in (128, 32) else (32,)):
             cfg = pipe.config.replace(k=k, dense_fat_group=fat)
             t0 = time.perf_counter()
             plan = bt.pack_tiles(csr, pipe.reorder(), cfg)
@@ -312,13 +345,14 @@ def check_kernels(torch, bt, dev, csr, results):
                 f"E={plan.res_arow.shape[0]} host {time.perf_counter()-t0:.2f}s")
             A_panels = A.index_select(0, dp.row_perm_padded).reshape(
                 plan.num_panels, plan.panel_height, k)
-            label = f"G={plan.fat_group} K={k}"
+            label = (f"G={plan.fat_group} K={k} "
+                     f"{bsr_route(plan.fat_group, plan.block_width, k)}")
             failures += check_case(
                 torch, dk, results, "bsr_dense", label,
                 (A_panels, Bt, dp.tile_panel, dp.tile_src),
                 dict(fat_group=plan.fat_group, block_width=plan.block_width),
                 keep=(k, fat) == (128, 32))
-            if fat != 1 and plan.num_packed:
+            if fat != 1 and plan.num_packed and k in (128, 32):
                 failures += check_case(
                     torch, dk, results, "subpack", f"K={k}",
                     (A_panels, Bt, dp.sp_colperm, dp.sp_panel, dp.sp_sub),
@@ -1212,6 +1246,95 @@ def batched_phase(torch, bt, dev, csr, results):
     return failures
 
 
+BENCH_KS = (64, 128, 256)
+BENCH_SCHEMA = ("metric", "value", "unit", "vs_baseline", "per_k_geomean",
+                "per_k_vs_baseline", "per_k_geomean_fp32out",
+                "matrices_per_k")
+
+
+def bench_phase(torch, bt, dev, suite, results):
+    """Phase 11: bench.suite.run on banded_mesh_32k and community_20k at
+    K in BENCH_KS with their R4_BEST arms (6 cells and community_20k's fp16
+    sibling at K=128), every arm validated, the launches of each K's cells
+    counted; then a bench.runner -> bench.analyze round trip through
+    subprocesses on the card."""
+    import csv
+    import glob
+    from bsmr_sddmm_tpu_torch.bench import analyze, runner
+    from bsmr_sddmm_tpu_torch.bench import suite as bench_suite
+    from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+    names = ("banded_mesh_32k", "community_20k")
+    per_k = {k: {"bsr_dense": 0, "subpack": 0} for k in BENCH_KS}
+    seen = {"bsr_dense": 0, "subpack": 0}
+    checks, routes = [], {k: [] for k in BENCH_KS}
+
+    def echo(msg):
+        say(f"[bench] {msg}")
+        m = re.match(r"# \S+ (?:a=\S+ d=\S+ )?k=(\d+)", msg)
+        if m:   # the launches since the last cell line are this cell's
+            for kname in seen:
+                n = getattr(dk, kname).launches
+                per_k[int(m.group(1))][kname] += n - seen[kname]
+                seen[kname] = n
+        arm = re.match(r"# (\S+) a=\S+ d=\S+ k=(\d+)( dt=f16)?: .* "
+                       r"G=(\d+) .* check (\w+)$", msg)
+        if arm:
+            name, k, _, G, check = arm.groups()
+            checks.append(check)
+            routes[int(k)].append(f"{name} G={G} "
+                                  f"{bsr_route(int(G), 128, int(k))}")
+
+    zero_launches()
+    out = bench_suite.run([(n, lambda n=n: suite[n]) for n in names],
+                          ks=BENCH_KS, budget_s=900.0, device=dev,
+                          echo=echo)
+    launches = read_launches(results)
+    failures = [f"bench: {key} {out[key]}"
+                for key in ("failed_cells", "budget_skipped") if key in out]
+    failures += [f"bench: no {key} in the result" for key in BENCH_SCHEMA
+                 if key not in out]
+    if out.get("matrices_per_k") != {str(k): 2 for k in BENCH_KS}:
+        failures.append(f"bench: matrices_per_k {out.get('matrices_per_k')}")
+    if checks != ["pass"] * 7:
+        failures.append(f"bench: 7 validated arms expected, checks {checks}")
+    say(f"[bench] per-K geomean GFLOPS {out.get('per_k_geomean')}, fp32 "
+        f"out {out.get('per_k_geomean_fp32out')}, vs the RTX 4090 baseline "
+        f"{out.get('per_k_vs_baseline')}")
+    for k in BENCH_KS:
+        say(f"[bench] K={k}: launches {per_k[k]}; bsr_dense routes "
+            f"{routes[k]}")
+    if per_k[256]["bsr_dense"] <= 0:
+        failures.append("bench: bsr_dense never launched at K=256")
+    say(f"[bench] launches over the sweep {launches}")
+
+    # runner -> analyze: the CLI and the gather_dot baseline, each in a
+    # process of its own on the card, read back by the analyzer
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(HERE), os.environ.get("PYTHONPATH")) if p)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "community_20k.mtx")
+        bt.formats.save_mtx(path, suite["community_20k"])
+        log_dir = os.path.join(tmp, "logs")
+        statuses = runner.run_suite(
+            [path], log_dir, ks=(128,), alphas=(0.1,), deltas=(0.002,),
+            baselines=("gather_dot",), validate=True, fast_bench=True,
+            echo=lambda m: say(f"[bench] runner {m}"))
+        failures += [f"bench: runner {s}" for s in statuses
+                     if s["returncode"] != 0]
+        a = analyze.analyze_logs(sorted(glob.glob(f"{log_dir}/*.log")),
+                                 k=128)
+        with open(analyze.write_results_csv(a, tmp)) as f:
+            rows = list(csv.DictReader(f))
+        say(f"[bench] analyze: rows {rows}; accuracy {a.accuracy}; "
+            f"bsmr over gather_dot {a.speedup_geomean}")
+        if len(rows) != 1 or not (rows[0].get("bsmr")
+                                  and rows[0].get("gather_dot")):
+            failures.append(f"bench: results csv rows {rows}")
+        if a.accuracy != {"bsmr": 1.0, "gather_dot": 1.0}:
+            failures.append(f"bench: analyze accuracy {a.accuracy}")
+    return failures
+
+
 def timed(phase, fn, *args) -> list:
     """Run one phase, print its wall time, return its failures."""
     t0 = time.perf_counter()
@@ -1302,6 +1425,7 @@ def main() -> int:
                       suite["community_20k"], results, smi)
     failures += timed("batched", batched_phase, torch, bt, dev,
                       suite["community_20k"], results)
+    failures += timed("bench", bench_phase, torch, bt, dev, suite, results)
     if failures:
         fail(f"{failures}")
     if "jax" in sys.modules:

@@ -410,7 +410,14 @@ def test_port_never_imports_jax():
         "bsmr_sddmm_tpu_torch.ops.dense_kernels, "
         "bsmr_sddmm_tpu_torch.ops._build, bsmr_sddmm_tpu_torch.utils, "
         "bsmr_sddmm_tpu_torch.cache, bsmr_sddmm_tpu_torch.evaluate, "
-        "bsmr_sddmm_tpu_torch.autotune, bsmr_sddmm_tpu_torch.baselines\n"
+        "bsmr_sddmm_tpu_torch.autotune, bsmr_sddmm_tpu_torch.baselines, "
+        "bsmr_sddmm_tpu_torch.datatools, bsmr_sddmm_tpu_torch.replicas, "
+        "bsmr_sddmm_tpu_torch.utils.hostmem, "
+        "bsmr_sddmm_tpu_torch.utils.profiling, "
+        "bsmr_sddmm_tpu_torch.bench.analyze, "
+        "bsmr_sddmm_tpu_torch.bench.plot, bsmr_sddmm_tpu_torch.bench.runner, "
+        "bsmr_sddmm_tpu_torch.bench.suite, "
+        "bsmr_sddmm_tpu_torch.bench.replica_suite\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'bsmr_sddmm_tpu.')) "
         "or m == 'bsmr_sddmm_tpu')\n"
