@@ -20,6 +20,9 @@ Layer map:
 
     CLI / driver       bsmr_sddmm_tpu_torch.cli
     orchestration      bsmr_sddmm_tpu_torch.sddmm (BsmrSddmm pipeline)
+    parallel layer     bsmr_sddmm_tpu_torch.parallel (shards over a mesh
+                       of devices, the B-panel ring, collectives,
+                       process bootstrap, weak scaling)
     preprocessing      bsmr_sddmm_tpu_torch.reorder, .pack, .native
     compute            bsmr_sddmm_tpu_torch.ops (body, CUDA kernels)
     data layer         bsmr_sddmm_tpu_torch.formats, .datasets

@@ -15,8 +15,11 @@ The counterpart of ``bsmr_sddmm_tpu.ops.sddmm`` (``device_plan``,
    else a row gather of each tile's bw columns and one ``bmm``;
 5. residual: two row gathers and a multiply-sum per nonzero.
 
-The output is the four tiers' arrays (``emit="rphm"``) or one gather of
-their concatenation along ``rphm_to_csr`` (``emit="csr"``, CSR value order).
+The output is the four tiers' arrays (``emit="rphm"``), one gather of
+their concatenation along ``rphm_to_csr`` (``emit="csr"``, CSR value order),
+or every padded slot of the four tiers scattered into a zero vector of
+``nnz + 1`` values whose last slot takes the pad slots
+(``emit="csr_scatter"``).
 The residual and the unfused gathered tier are plain torch (the JAX package
 leaves them to XLA too). They read ``config.tier_memory_mb`` as the JAX body
 does: above ``E*K*8`` bytes (residual) or ``Tg*bw*K*4`` bytes (gathered) they
@@ -131,7 +134,12 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     A is (M, K) and Bt = B^T is (N, K), both on the device of ``dplan``.
     ``emit="csr"`` returns (nnz,) values in CSR order; ``emit="rphm"``
     returns ``(dense (T, ph, bw), packed (Tp, ph, bw), gathered (Tg, ph,
-    bw), residual (E,))``. ``only_tier`` ("dense" | "packed" | "gathered" |
+    bw), residual (E,))``; ``emit="csr_scatter"`` returns (nnz + 1,)
+    values: every slot of the four tiers written through its scatter map
+    in the JAX body's order (dense, packed when Tp > 0, gathered,
+    residual), pad slots into the trash slot ``nnz``, so ``[:nnz]`` is the
+    CSR-order result. It reads the scatter maps, so it needs the full
+    ``device_plan`` (not the ``emit="rphm"`` one). ``only_tier`` ("dense" | "packed" | "gathered" |
     "residual") returns that tier's array alone. ``backend`` "auto" runs
     the hand kernels on CUDA tensors and their plain versions on CPU
     tensors; "torch" runs the plain versions everywhere. The gathered tier
@@ -140,11 +148,12 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     backend = config.backend if backend is None else backend
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
-    if emit not in ("csr", "rphm"):
+    if emit not in ("csr", "rphm", "csr_scatter"):
         raise ValueError(f"unknown emit {emit!r}")
     if only_tier not in (None, "dense", "packed", "gathered", "residual"):
         raise ValueError(f"unknown only_tier {only_tier!r}")
     ph, bw, k = plan.panel_height, plan.block_width, plan.k
+    nnz = plan.nnz
     num_panels = max(plan.num_panels, 1)
     G = plan.fat_group
     Tp = plan.sp_panel.shape[0] if plan.sp_panel is not None else 0
@@ -225,8 +234,20 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
                  residual_out(A_perm, Bt, dplan))
         if emit == "rphm":
             return tiers
-        big = torch.cat([t.reshape(-1) for t in tiers])
-        return big.index_select(0, dplan.rphm_to_csr)
+        if emit == "csr":
+            big = torch.cat([t.reshape(-1) for t in tiers])
+            return big.index_select(0, dplan.rphm_to_csr)
+        # "csr_scatter": every padded slot written through its map; only
+        # the trash slot nnz takes more than one write
+        maps = (dplan.tile_scatter, dplan.sp_scatter, dplan.g_scatter,
+                dplan.res_out)
+        if any(m.numel() != t.numel() for m, t in zip(maps, tiers)):
+            raise ValueError("emit='csr_scatter' needs the scatter maps: "
+                             "pass device_plan(plan, device) (emit='csr')")
+        out = tiers[0].new_zeros(nnz + 1)
+        for tier, m in zip(tiers, maps):    # an empty packed tier writes none
+            out[m.reshape(-1).long()] = tier.reshape(-1)
+        return out
 
     return fn
 

@@ -4,8 +4,10 @@ A copy of ``bsmr_sddmm_tpu.pack.pack_tiles`` and ``TilePlan`` (plain NumPy),
 kept in this package because importing ``bsmr_sddmm_tpu`` imports JAX. The
 same reordering gives a bit-identical ``TilePlan`` in both packages
 (tests/test_torch_host.py), so the two bodies can be compared tier by tier.
-The JAX package's shard packing (``pack_shard_plans``,
-``panel_cost_weights``, ``_unify_window_groups``) is not ported yet.
+The shard packing of the parallel layer (``pack_shard_plans``,
+``panel_cost_weights``, ``_unify_window_groups``, ``_pad_plan_to``) is
+copied too, so both packages split a mask into bit-identical shard plans
+(tests/test_torch_parallel.py).
 
 The plan re-designs the CUDA original's RPHM device format
 (RPHM::RPHM, src/BSMR.cpp:83-265):
@@ -204,7 +206,8 @@ class TilePlan:
 
 
 def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
-               k: Optional[int] = None) -> TilePlan:
+               k: Optional[int] = None,
+               fat_group_override: Optional[int] = None) -> TilePlan:
     """Build the TilePlan from a finished BSMR reordering.
 
     Mirrors RPHM::RPHM's two passes (dense blockValues, BSMR.cpp:143-174;
@@ -284,25 +287,31 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
         # fat steps: G same-cblock tiles per step share one B block. Each
         # same-cblock run pads to a G multiple; G adapts to the run
         # structure so padding stays small.
-        want_fat = config.dense_fat_group
+        want_fat = (fat_group_override if fat_group_override is not None
+                    else config.dense_fat_group)
         G = 1
         if want_fat > 1 and num_tiles0:
             run_starts = np.nonzero(np.diff(cb_sorted, prepend=-1))[0]
             run_lens = np.diff(np.append(run_starts, num_tiles0))
-            # choose G by minimizing padded tiles x per-tile cost:
-            # fatter steps amortize a per-step cost but pad each
-            # same-cblock run up to a G multiple. The weights are the
-            # JAX package's, fitted on its TPU and kept unchanged so
-            # that plans stay bit-identical; costs for this package's
-            # kernels are later work (ROADMAP.md).
-            best_score = None
-            g_cand = 1
-            while g_cand <= want_fat:
-                padded = int((-(-run_lens // g_cand) * g_cand).sum())
-                score = padded * (52.0 + 208.0 / g_cand)
-                if best_score is None or score < best_score:
-                    best_score, G = score, g_cand
-                g_cand *= 2
+            if fat_group_override is not None:
+                # shard packs force one G across shards (the sharded body
+                # is built once, from the first shard's plan)
+                G = fat_group_override
+            else:
+                # choose G by minimizing padded tiles x per-tile cost:
+                # fatter steps amortize a per-step cost but pad each
+                # same-cblock run up to a G multiple. The weights are the
+                # JAX package's, fitted on its TPU and kept unchanged so
+                # that plans stay bit-identical; costs for this package's
+                # kernels are later work (ROADMAP.md).
+                best_score = None
+                g_cand = 1
+                while g_cand <= want_fat:
+                    padded = int((-(-run_lens // g_cand) * g_cand).sum())
+                    score = padded * (52.0 + 208.0 / g_cand)
+                    if best_score is None or score < best_score:
+                        best_score, G = score, g_cand
+                    g_cand *= 2
         if G > 1:
             padded_lens = -(-run_lens // G) * G
             T_flat0 = int(padded_lens.sum())
@@ -736,3 +745,365 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
     )
     plan.pack_time_ms = (_time.perf_counter() - t0) * 1e3
     return plan
+
+
+def _pad_plan_to(plan: TilePlan, T: int, Tp: int, Tg: int, E: int,
+                 num_panels: int, H_cp: int = 0) -> TilePlan:
+    """Pad a shard's TilePlan out to common shapes (extra tiles/entries
+    land in the trash slot; extra panels read row 0 of A, never emitted;
+    extra colperm rows gather column 0, referenced only by pad tiles)."""
+    ph, bw, nnz = plan.panel_height, plan.block_width, plan.nnz
+    G = plan.fat_group
+
+    def pad(arr, n, fill):
+        if arr.shape[0] == n:
+            return arr
+        extra = np.full((n - arr.shape[0],) + arr.shape[1:], fill,
+                        arr.dtype)
+        return np.concatenate([arr, extra], axis=0)
+
+    T0 = plan.tile_panel.shape[0]
+    assert T % max(G, 1) == 0 and T0 % max(G, 1) == 0
+    ncb = -(-plan.cols // bw)
+    pad_cols = np.minimum(np.arange(bw), plan.cols - 1).astype(np.int32)
+    out = dataclasses.replace(
+        plan,
+        tile_panel=pad(plan.tile_panel, T, 0),
+        tile_cols=pad(plan.tile_cols, T, 0) if T == T0 else np.concatenate(
+            [plan.tile_cols, np.broadcast_to(pad_cols, (T - T0, bw)).copy()],
+            axis=0),
+        tile_scatter=pad(plan.tile_scatter, T, nnz),
+        tile_cblock=(pad(plan.tile_cblock, T, 0)
+                     if plan.tile_cblock is not None else None),
+        step_cblock=(pad(plan.step_cblock, T // G, 0)
+                     if plan.step_cblock is not None else None),
+        sp_panel=pad(plan.sp_panel, Tp, 0),
+        sp_sub=pad(plan.sp_sub, Tp, 0),
+        sp_scatter=pad(plan.sp_scatter, Tp, nnz),
+        sp_colperm=pad(plan.sp_colperm, H_cp, 0),
+        g_panel=pad(plan.g_panel, Tg, 0),
+        g_cols=pad(plan.g_cols, Tg, max(plan.cols - 1, 0)),
+        g_scatter=pad(plan.g_scatter, Tg, nnz),
+        res_arow=pad(plan.res_arow, E, 0),
+        res_col=pad(plan.res_col, E, 0),
+        res_out=pad(plan.res_out, E, nnz),
+        row_perm_padded=pad(plan.row_perm_padded, num_panels * ph, 0),
+        num_panels=num_panels,
+    )
+    return out
+
+
+def _unify_window_groups(plans: list, config: SddmmConfig) -> list:
+    """Rebuild each shard plan's gathered/residual gather windows on one
+    SHARED static group grid.
+
+    Window groups are static metadata of the sddmm body, and the sharded
+    path builds ONE body (from plans[0]) for every shard — so all
+    shards must agree on (window_rows, a_window_rows, g_groups,
+    res_groups). Per-shard packs agree on the B-side window size (it
+    depends only on (N, k)) but not on which windows they touch or how
+    many tiles/entries land in each; this pass takes the union of touched
+    windows, pads every shard's per-window count up to the max with trash
+    slots (scatter -> nnz, gather cols -> the window base, so pads stay
+    window-pure and their output is dropped), and rewrites the arrays in
+    the shared group order. num_gathered/num_residual become the padded
+    group totals (the windowed body computes exactly the group slots and
+    zero-fills the tail). Per-plan ``rphm_to_csr`` is NOT updated — the
+    sharded csr map is rebuilt from the scatter arrays
+    (parallel.sharding.sharded_rphm_to_csr). No-op when nothing windowed.
+    This package's body runs windowed plans by absolute index, so the
+    rewritten pads read valid rows and give the same values.
+    """
+    p0 = plans[0]
+    W = p0.window_rows
+    assert all(p.window_rows == W for p in plans), \
+        "B-window size must be shard-independent"
+    ph, bw, nnz, N, k = (p0.panel_height, p0.block_width, p0.nnz,
+                         p0.cols, p0.k)
+    new = list(plans)
+
+    if W is not None:
+        per_shard = []
+        base_set = set()
+        for p in plans:
+            ng = p.num_gathered
+            grp = p.g_cols[:ng, 0].astype(np.int64) // W
+            base = np.minimum(grp * W, N - W)
+            order = np.argsort(base, kind="stable")
+            per_shard.append((base[order], order))
+            base_set.update(np.unique(base).tolist())
+        bases = np.asarray(sorted(base_set), np.int64)
+        counts = np.zeros(bases.shape[0], np.int64)
+        for sb, _ in per_shard:
+            if sb.size:
+                idx = np.searchsorted(bases, sb)
+                counts = np.maximum(
+                    counts, np.bincount(idx, minlength=bases.shape[0]))
+        offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        num_g = int(offs[-1])
+        # array length must stay an exact execution-chunk multiple (the
+        # body's _chunk_of falls back to gcd(n, chunk) — an odd total
+        # would collapse the chunk to 1 and explode the traced program)
+        Tg_len = exec_size(num_g, config.bucket_shapes,
+                           config.dense_chunk)
+        g_groups = [(int(b), int(offs[i]), int(offs[i + 1]))
+                    for i, b in enumerate(bases)]
+        for si, p in enumerate(plans):
+            sb, order = per_shard[si]
+            g_panel = np.zeros(Tg_len, np.int32)
+            g_cols = np.full((Tg_len, bw), max(N - 1, 0), np.int32)
+            for i in range(bases.shape[0]):        # pad cols stay in-window
+                g_cols[offs[i]:offs[i + 1]] = bases[i]
+            g_scatter = np.full((Tg_len, ph, bw), nnz, np.int32)
+            if sb.size:
+                idx = np.searchsorted(bases, sb)
+                within = np.arange(sb.size) - np.searchsorted(sb, sb)
+                dest = offs[idx] + within
+                ng = p.num_gathered
+                g_panel[dest] = p.g_panel[:ng][order]
+                g_cols[dest] = p.g_cols[:ng][order]
+                g_scatter[dest] = p.g_scatter[:ng][order]
+            new[si] = dataclasses.replace(
+                new[si], g_panel=g_panel, g_cols=g_cols,
+                g_scatter=g_scatter, num_gathered=num_g,
+                g_groups=g_groups if num_g else None)
+
+    # ---- residual: (A-window, B-window) pair groups on the common grid --
+    a_rows_c = max(p.row_perm_padded.shape[0] for p in plans)
+    Wa = None
+    if (config.gather_window_mb
+            and a_rows_c * k * 4 > (config.gather_window_threshold_mb
+                                    << 20)):
+        awr = max((config.gather_window_mb << 20) // (k * 4), ph)
+        awr = max(awr, -(-a_rows_c // max(config.max_gather_groups, 1)))
+        if a_rows_c > 2 * awr:
+            Wa = awr
+    if W is None and Wa is None:
+        return new
+
+    def pair_keys(p, use_a):
+        ne = p.num_residual
+        rows = p.res_arow[:ne].astype(np.int64)
+        cols = p.res_col[:ne].astype(np.int64)
+        ab = (np.minimum(rows // Wa * Wa, a_rows_c - Wa)
+              if (Wa and use_a) else np.full(ne, -1, np.int64))
+        bb = (np.minimum(cols // W * W, N - W) if W
+              else np.full(ne, -1, np.int64))
+        return ab, bb
+
+    use_a = Wa is not None
+    pair_set = set()
+    for p in plans:
+        ab, bb = pair_keys(p, use_a)
+        pair_set.update({(int(a), int(b)) for a, b in
+                         zip(*(np.unique(np.stack([ab, bb]), axis=1)))})
+    if use_a and len(pair_set) > 2 * max(config.max_gather_groups, 1):
+        # same budget rule as pack_tiles: drop the A side first
+        use_a = False
+        pair_set = set()
+        for p in plans:
+            ab, bb = pair_keys(p, use_a)
+            pair_set.update({(int(a), int(b)) for a, b in
+                             zip(*(np.unique(np.stack([ab, bb]),
+                                             axis=1)))})
+    pairs = sorted(pair_set)
+    pkeys = np.asarray([a * (N + 2) + b for a, b in pairs], np.int64) \
+        if pairs else np.zeros(0, np.int64)
+    counts = np.zeros(len(pairs), np.int64)
+    shard_keys = []
+    for p in plans:
+        ab, bb = pair_keys(p, use_a)
+        key = ab * (N + 2) + bb
+        order = np.argsort(key, kind="stable")
+        shard_keys.append((key[order], order))
+        if key.size:
+            idx = np.searchsorted(pkeys, key)
+            counts = np.maximum(
+                counts, np.bincount(idx, minlength=len(pairs)))
+    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    num_r = int(offs[-1])
+    # exact execution-chunk multiple (see the gathered-tier note above)
+    E_len = exec_size(num_r, config.bucket_shapes, config.residual_chunk)
+    res_groups = [(int(a), int(b), int(offs[i]), int(offs[i + 1]))
+                  for i, (a, b) in enumerate(pairs)]
+    for si, p in enumerate(plans):
+        ks, order = shard_keys[si]
+        res_arow = np.zeros(E_len, np.int32)
+        res_col = np.zeros(E_len, np.int32)
+        for i, (a, b) in enumerate(pairs):        # pads stay in-window
+            res_arow[offs[i]:offs[i + 1]] = max(a, 0)
+            res_col[offs[i]:offs[i + 1]] = max(b, 0)
+        res_out = np.full(E_len, nnz, np.int32)
+        if ks.size:
+            idx = np.searchsorted(pkeys, ks)
+            within = np.arange(ks.size) - np.searchsorted(ks, ks)
+            dest = offs[idx] + within
+            ne = p.num_residual
+            res_arow[dest] = p.res_arow[:ne][order]
+            res_col[dest] = p.res_col[:ne][order]
+            res_out[dest] = p.res_out[:ne][order]
+        new[si] = dataclasses.replace(
+            new[si], res_arow=res_arow, res_col=res_col, res_out=res_out,
+            num_residual=num_r,
+            res_groups=res_groups if num_r else None,
+            a_window_rows=Wa if use_a else None)
+    return new
+
+
+def panel_cost_weights(csr: CSR, reord: BsmrReordering,
+                       config: SddmmConfig,
+                       k: Optional[int] = None) -> np.ndarray:
+    """Per-panel predicted kernel cost (ns) for shard balancing.
+
+    A sharded call runs at the SLOWEST shard, and a panel's time is
+    dominated by its dense TILE count (each tile's output DMA is
+    nnz-independent) plus its residual nonzeros at the per-nnz
+    descriptor rate — NOT by its nnz. nnz-only balancing leaves
+    1.4-1.5x tile-count skew on power-law masks
+    (results/v5e_r3/scaling_model.json), so the shard splitter balances
+    on the cost model's own weights. Gathered-tier slots price within
+    ~1.5x of per-nnz entries, close enough for a balance weight. The
+    prices are the JAX package's TPU v5e table (``V5E_COSTS``), kept so
+    that the shard bounds, and so the shard plans, equal the JAX
+    package's; they say nothing about the card.
+    """
+    from bsmr_sddmm_tpu_torch.autotune import V5E_COSTS as _C  # lazy: no cycle
+    k = config.k if k is None else k
+    ph, bw = config.panel_height, config.block_width
+    perm = reord.row_perm.astype(np.int64)
+    num_panels = reord.num_row_panels
+    dco = reord.dense_col_offsets
+    tiles_p = (np.diff(dco) // bw).astype(np.float64)
+    # dense nnz per panel: the same membership join as pack_tiles, kept
+    # to per-panel counts (no maps)
+    row_nnz = csr.row_nnz()
+    perm_nnz = row_nnz[perm]
+    pos = np.repeat(np.arange(perm.shape[0], dtype=np.int64), perm_nnz)
+    panel_of_entry = pos // ph
+    eidx = _concat_ranges(csr.row_offsets[perm], perm_nnz)
+    cols = csr.col_indices[eidx].astype(np.int64)
+    sent = np.int64(csr.cols + 1)
+    dense_keys = (np.repeat(np.arange(num_panels, dtype=np.int64),
+                            np.diff(dco)) * sent + reord.dense_cols)
+    ds = np.argsort(dense_keys, kind="stable")
+    dks = dense_keys[ds]
+    ek = panel_of_entry * sent + cols
+    if dks.shape[0]:
+        p2 = np.minimum(np.searchsorted(dks, ek), dks.shape[0] - 1)
+        is_dense = dks[p2] == ek
+    else:
+        is_dense = np.zeros(ek.shape[0], dtype=bool)
+    dense_nnz_p = np.bincount(panel_of_entry[is_dense],
+                              minlength=num_panels).astype(np.float64)
+    panel_nnz = np.bincount(panel_of_entry,
+                            minlength=num_panels).astype(np.float64)
+    G = max(config.dense_fat_group, 1)
+    dense_ns = (_C["dense_floor_base_ns"] + _C["dense_floor_k_ns"] * k
+                + (_C["dense_step_base_ns"]
+                   + _C["dense_step_k_ns"] * k) / G)
+    per_ns = _C["pernnz_base_ns"] + _C["pernnz_k_ns"] * k
+    return tiles_p * dense_ns + (panel_nnz - dense_nnz_p) * per_ns
+
+
+def pack_shard_plans(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
+                     n_shards: int, k: Optional[int] = None,
+                     balance: str = "cost") -> list:
+    """Row-panel sharding: split the reordered panels into ``n_shards``
+    contiguous, cost-balanced ranges (``balance="cost"``, the default:
+    per-panel predicted kernel cost from :func:`panel_cost_weights`;
+    ``balance="nnz"`` keeps the round-2 nnz split) and pack each range
+    independently — each shard keeps fat steps (one common fat group, a
+    static of the shared sharded body) and its own
+    bucketed-then-padded-common shapes. Scatter indices stay GLOBAL
+    (into csr.nnz), so the shard outputs are exact disjoint pieces of
+    the full rphm layout.
+
+    This replaces round 1's slice-a-global-plan approach, which silently
+    dropped fat steps and gather windows. Gather windows are kept: window
+    groups must be identical static metadata across shards under one
+    sharded body, so per-shard groups are rewritten onto a shared
+    static window grid (:func:`_unify_window_groups`).
+    """
+    if reord.dense_cols is None:
+        raise ValueError("run the column split (split_columns) first")
+    # windows stay ON: per-shard packs produce per-shard window groups,
+    # and _unify_window_groups below rewrites them onto one shared static
+    # grid (a single sharded body serves every shard) — cliff-scale B
+    # keeps the windowed-gather protection under multi-chip
+    cfg = config
+    ph = cfg.panel_height
+    perm = reord.row_perm
+    R = perm.shape[0]
+    num_panels = reord.num_row_panels
+    # per-panel weight -> contiguous balanced ranges
+    if balance == "cost":
+        weights = panel_cost_weights(csr, reord, cfg, k=k)
+    elif balance == "nnz":
+        row_nnz = csr.row_nnz()[perm]
+        pad_rows = num_panels * ph - R
+        weights = np.concatenate(
+            [row_nnz, np.zeros(pad_rows, np.int64)]) \
+            .reshape(num_panels, ph).sum(axis=1).astype(np.float64)
+    else:
+        raise ValueError(f"unknown balance {balance!r}")
+    cum = np.concatenate([[0.0], np.cumsum(weights)])
+    targets = cum[-1] * np.arange(1, n_shards) / n_shards
+    bounds = np.concatenate([[0], np.searchsorted(cum, targets),
+                             [num_panels]]).astype(np.int64)
+    bounds = np.maximum.accumulate(bounds)
+
+    dco = reord.dense_col_offsets
+    shard_plans = []
+    for s in range(n_shards):
+        p0, p1 = int(bounds[s]), int(bounds[s + 1])
+        rows = perm[p0 * ph: min(p1 * ph, R)]
+        if rows.size == 0:
+            rows = perm[:0]
+        sub = dataclasses.replace(
+            reord,
+            row_perm=rows,
+            cluster_ids=reord.cluster_ids[p0 * ph: min(p1 * ph, R)],
+            dense_cols=reord.dense_cols[dco[p0]:dco[p1]],
+            dense_col_offsets=(dco[p0:p1 + 1] - dco[p0]),
+        )
+        shard_plans.append(pack_tiles(csr, sub, cfg, k=k,
+                                      fat_group_override=1))
+    # common fat group: largest power of two every shard can be regrouped
+    # to is 1 unless we re-pack; instead re-pack with the global adaptive G
+    tile_counts = [p.num_tiles for p in shard_plans]
+    if cfg.dense_fat_group > 1 and any(tile_counts):
+        meds = []
+        for p in shard_plans:
+            if p.num_tiles and p.tile_cblock is not None:
+                cb = p.tile_cblock[:p.num_tiles]
+                starts = np.nonzero(np.diff(cb, prepend=-1))[0]
+                meds.append(int(np.median(np.diff(
+                    np.append(starts, p.num_tiles)))))
+        med = min(meds) if meds else 1
+        G = 1
+        while G * 2 <= cfg.dense_fat_group and G * 2 <= med:
+            G *= 2
+        if G > 1:
+            shard_plans = []
+            for s in range(n_shards):
+                p0, p1 = int(bounds[s]), int(bounds[s + 1])
+                rows = perm[p0 * ph: min(p1 * ph, R)]
+                sub = dataclasses.replace(
+                    reord,
+                    row_perm=rows,
+                    cluster_ids=reord.cluster_ids[p0 * ph: min(p1 * ph, R)],
+                    dense_cols=reord.dense_cols[dco[p0]:dco[p1]],
+                    dense_col_offsets=(dco[p0:p1 + 1] - dco[p0]),
+                )
+                shard_plans.append(pack_tiles(csr, sub, cfg, k=k,
+                                              fat_group_override=G))
+    if any(p.window_rows or p.a_window_rows for p in shard_plans):
+        shard_plans = _unify_window_groups(shard_plans, cfg)
+    # pad to common shapes
+    T = max(p.tile_panel.shape[0] for p in shard_plans)
+    Tp = max(p.sp_panel.shape[0] for p in shard_plans)
+    Tg = max(p.g_panel.shape[0] for p in shard_plans)
+    E = max(p.res_arow.shape[0] for p in shard_plans)
+    NP = max(max(p.num_panels for p in shard_plans), 1)
+    H_cp = max(p.sp_colperm.shape[0] for p in shard_plans)
+    return [_pad_plan_to(p, T, Tp, Tg, E, NP, H_cp) for p in shard_plans]

@@ -68,7 +68,31 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    default lr with a finite loss and their profile split;
 10. batched: make_batched_sddmm_fn at Z=4 on the community_20k plan, K=128,
    against four single calls of the body;
-11. bench: bench.suite.run on banded_mesh_32k and community_20k at K 64,
+11. sharded: the parallel layer's sharded SDDMM over a 4-shard mesh (4
+   cards where 4 are visible, else 4 shards on cuda:0, run one after
+   another) at K=128: banded_mesh_32k at its R4_BEST arm (alpha 0.3, delta
+   0.002, subpack 12) with emit="csr" (B replicated, then b-sharded) and
+   emit="rphm" reassembled through sharded_rphm_to_csr, then the
+   single-device body's emit="csr_scatter"; community_20k (alpha 0.1) with
+   the fused gathered tier. Each against the fp64 oracle, the same path
+   built on the plain kernel versions (backend="torch") and the
+   single-device port's output, with its launches (each tile kernel once
+   per shard), all-gathers (0, or 1 b-sharded) and ms per call by CUDA
+   events beside the single-device body's;
+12. ring: make_ring_sddmm(emit="csr") on both matrices over 4 shards:
+   check_data, agreement with its plain build and the single-device
+   output, bsr_dense 16 launches a call (dense_tile 16 where the plan
+   has gathered tiles), 3 hops per shard, no all-gather, ms per call;
+13. weak: parallel.distributed.sddmm_weak_scaling([1, 2, 4]) at its
+   defaults: shapes, output slots per shard, no collective, ms per call
+   (with the shards on one card: serial work, not a scaling figure);
+14. multihost: two worker processes (python -m
+   bsmr_sddmm_tpu_torch.parallel.worker) with 2 shards each on cuda:0 over
+   gloo (host-staged), banded_mesh_32k at K=128: the b-sharded all-gather
+   and the ring's hops cross the process boundary; both check pass, one
+   plan hash; over nccl with a card per process where 2 cards are visible
+   (else printed as not run);
+15. bench: bench.suite.run on banded_mesh_32k and community_20k at K 64,
    128 and 256 with bench.py's R4_BEST arms (6 cells and an fp16 sibling,
    each validated), bsr_dense's launches and route at each K, the per-K
    geomean; then bench.runner.run_suite on community_20k saved as .mtx
@@ -1253,7 +1277,7 @@ BENCH_SCHEMA = ("metric", "value", "unit", "vs_baseline", "per_k_geomean",
 
 
 def bench_phase(torch, bt, dev, suite, results):
-    """Phase 11: bench.suite.run on banded_mesh_32k and community_20k at
+    """Phase 15: bench.suite.run on banded_mesh_32k and community_20k at
     K in BENCH_KS with their R4_BEST arms (6 cells and community_20k's fp16
     sibling at K=128), every arm validated, the launches of each K's cells
     counted; then a bench.runner -> bench.analyze round trip through
@@ -1332,6 +1356,355 @@ def bench_phase(torch, bt, dev, suite, results):
             failures.append(f"bench: results csv rows {rows}")
         if a.accuracy != {"bsmr": 1.0, "gather_dot": 1.0}:
             failures.append(f"bench: analyze accuracy {a.accuracy}")
+    return failures
+
+
+# the parallel layer: 4 shards; the SUITE matrices at K=128 with their
+# bench.py R4_BEST arms (delta 0.002, subpack 12, ph 32, fp32), the
+# community run with the fused gathered tier
+PAR_N = 4
+PAR_ARMS = (("banded_mesh_32k", 0.3, "xla"), ("community_20k", 0.1, "fused"))
+WORKER_TIMEOUT_S = 300
+
+
+def mesh_devices(torch):
+    """PAR_N cards where that many are visible, else PAR_N shards on the
+    first card (run one after another), and how to say which."""
+    if torch.cuda.device_count() >= PAR_N:
+        return [f"cuda:{i}" for i in range(PAR_N)], f"{PAR_N} cards"
+    return ["cuda:0"] * PAR_N, (
+        f"{PAR_N} shards on cuda:0 ({torch.cuda.device_count()} card "
+        f"visible: the shards run one after another)")
+
+
+def sync_all(torch, devices):
+    for d in sorted({str(d) for d in devices}):
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def time_mesh(torch, fn, args, devices):
+    """(eager, replay) milliseconds per call: eager calls between CUDA
+    events on the first device, which waits for the others after each
+    call (distributed.join_devices), host enqueue included; and, where
+    every shard is on one card, a replayed CUDA graph of one call (the
+    device time, as ``sddmm_ms`` is timed), else None."""
+    from bsmr_sddmm_tpu_torch.parallel.distributed import join_devices
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda, time_cuda_graph
+    devs = sorted({torch.device(d) for d in devices}, key=str)
+    with torch.cuda.device(devs[0]):
+        eager, _ = time_cuda(join_devices(fn, devs), *args, iterations=10)
+        replay = (time_cuda_graph(fn, *args, iterations=10)[0]
+                  if len(devs) == 1 else None)
+    return eager, replay
+
+
+def say_ms(ms, ref_ms) -> str:
+    """A path's (eager, replay) ms beside the single-device body's."""
+    eager, replay = ms
+    out = (f"{eager:.4f} ms a call eager (CUDA events, "
+           f"{eager / ref_ms[0]:.2f}x single device)")
+    if replay is None:
+        return out + ", replay not measured (shards on several cards)"
+    return out + (f", {replay:.4f} ms replayed graph "
+                  f"({replay / ref_ms[1]:.2f}x single device)")
+
+
+def counted_call(torch, fn, args, devices, results):
+    """One call with the launch and collective counters set to 0 just
+    before it: its result, launches (added to the kernels line) and
+    collective counts."""
+    from bsmr_sddmm_tpu_torch.parallel import collectives
+    zero_launches()
+    collectives.zero_counts()
+    out = fn(*args)
+    sync_all(torch, devices)
+    return out, read_launches(results), collectives.read_counts()
+
+
+def single_reference(torch, bt, dev, suite, refs, name, alpha, gb):
+    """The single-device port on ``name`` at its arm (cached in
+    ``refs``): config, reordering, plan, operands, the fp64 oracle, the
+    body's CSR output and its (eager, replay) ms per call."""
+    if name in refs:
+        return refs[name]
+    import numpy as np
+    from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan,
+                                                make_sddmm_body, sddmm_ref)
+    csr = suite[name]
+    cfg = bt.SddmmConfig(k=128, alpha=alpha, delta=0.002,
+                         subpack_min_nnz=12, gathered_backend=gb)
+    reord = bt.BsmrSddmm(csr, cfg, device=dev).reorder()
+    plan = bt.pack_tiles(csr, reord, cfg)
+    A = bt.make_dense(csr.rows, 128, seed=1337)
+    B = bt.make_dense(128, csr.cols, seed=1338)
+    Bt = np.ascontiguousarray(B.T)
+    dp = device_plan(plan, dev)
+    args = (torch.from_numpy(A).to(dev), torch.from_numpy(Bt).to(dev), dp)
+    body = make_sddmm_body(plan, cfg, emit="csr")
+    out = body(*args)
+    refs[name] = dict(csr=csr, cfg=cfg, reord=reord, plan=plan, A=A, Bt=Bt,
+                      dp=dp, args=args, expected=sddmm_ref(A, B, csr),
+                      out=out, ms=time_mesh(torch, body, args, [dev]))
+    return refs[name]
+
+
+def hold(torch, label, vals, plain, ref, failures):
+    """check_data against the fp64 oracle, and agreement (TOL fp32) with
+    ``plain``, the same path built on the plain kernel versions
+    (``backend="torch"``) on the same inputs, and with the single-device
+    port's CSR output; returns the line part."""
+    from bsmr_sddmm_tpu_torch.utils.checkdata import check_data
+    res = check_data(ref["expected"], vals.float().cpu().numpy())
+    if not res.passed:
+        failures.append(f"{label}: check fail ({res.error_rate})")
+    line = (f"check {'pass' if res.passed else 'fail'} (error rate "
+            f"{res.error_rate})")
+    for what, want in (("plain build", plain), ("single-device", ref["out"])):
+        err, _, ok = compare(torch, vals, want, "float32")
+        if not ok:
+            failures.append(f"{label}: off the {what} output by {err}")
+        line += (f"; vs {what} max_abs {err:.3e} "
+                 f"({'ok' if ok else 'MISMATCH'} at {TOL['float32']})")
+    return line
+
+
+def sharded_phase(torch, bt, dev, suite, results, picks, refs):
+    """Phase 11: make_sharded_sddmm over a PAR_N-shard mesh at K=128 on
+    banded_mesh_32k (emit="csr" with B replicated and b-sharded,
+    emit="rphm" reassembled through sharded_rphm_to_csr, and the
+    single-device body's emit="csr_scatter") and community_20k (emit="csr"
+    with the fused gathered tier): each against the fp64 oracle, its
+    plain build (backend="torch") and the single-device port's output,
+    with its launches and collectives per call and its ms per call by CUDA
+    events."""
+    from bsmr_sddmm_tpu_torch.ops.sddmm import make_sddmm_body
+    from bsmr_sddmm_tpu_torch.parallel import (make_mesh, make_sharded_sddmm,
+                                               shard_operands,
+                                               sharded_rphm_to_csr)
+    devices, where = mesh_devices(torch)
+    say(f"[sharded] mesh: {where}")
+    mesh = make_mesh(devices=devices)
+    failures = []
+    for name, alpha, gb in PAR_ARMS:
+        ref = single_reference(torch, bt, dev, suite, refs, name, alpha, gb)
+        csr, cfg, reord = ref["csr"], ref["cfg"], ref["reord"]
+        fixed = picks.get(name, {}).get("fixed arm")
+        say(f"[sharded] {name} K=128 alpha={alpha} delta=0.002 subpack 12 "
+            f"gathered={gb}: single-device csr body {ref['ms'][0]:.4f} ms a "
+            f"call eager (CUDA events), {ref['ms'][1]:.4f} ms replayed "
+            f"graph" + (f"; [main] sddmm_ms {fixed[3]:.4f} (rphm, graph "
+                        f"replay)" if fixed and gb == "xla" else ""))
+        runs = (("csr", False), ("csr b_sharded", True), ("rphm", False),
+                ("csr_scatter", None)) if gb == "xla" else (("csr", False),)
+        for label, b_sharded in runs:
+            run = f"sharded {name} {label}"
+            if label == "csr_scatter":
+                plan = ref["plan"]
+                fn, plain_fn = (make_sddmm_body(plan, cfg, b,
+                                                emit="csr_scatter")
+                                for b in (None, "torch"))
+                args, devs, shards, p0 = ref["args"], [dev], 1, plan
+            else:
+                emit = "rphm" if label == "rphm" else "csr"
+                fn, dplan, plans = make_sharded_sddmm(
+                    csr, reord, cfg, mesh, b_sharded=b_sharded, emit=emit)
+                plain_fn = make_sharded_sddmm(
+                    csr, reord, cfg, mesh, b_sharded=b_sharded, emit=emit,
+                    backend="torch")[0]
+                A_d, Bt_d = shard_operands(ref["A"], ref["Bt"], mesh,
+                                           b_sharded=b_sharded)
+                args, devs, shards = (A_d, Bt_d, dplan), devices, PAR_N
+                p0 = plans[0]
+
+            def values(out):
+                if label == "rphm":
+                    cmap = torch.from_numpy(sharded_rphm_to_csr(plans)).to(dev)
+                    return torch.cat([torch.cat([t.reshape(-1).to(dev)
+                                                 for t in tier])
+                                      for tier in out]).index_select(0, cmap)
+                return out[:csr.nnz] if label == "csr_scatter" else out
+            t0 = time.perf_counter()
+            out, launches, counts = counted_call(torch, fn, args, devs,
+                                                 results)
+            line = hold(torch, run, values(out), values(plain_fn(*args)),
+                        ref, failures)
+            ms = time_mesh(torch, fn, args, devs)
+            say(f"[sharded]   {label}: {line}; {say_ms(ms, ref['ms'])}; "
+                f"launches "
+                f"{launches}; collectives {counts}; wall "
+                f"{time.perf_counter() - t0:.1f} s")
+            # a kernel launches on every shard whose (common) tier shape
+            # is not empty
+            fused = (gb == "fused" and p0.g_panel.shape[0] > 0
+                     and p0.g_groups is None)
+            want = {"bsr_dense": shards * bool(p0.tile_panel.shape[0]),
+                    "subpack": shards * bool(p0.sp_panel.shape[0]),
+                    "fused_gathered": shards * fused}
+            for kname, n in want.items():
+                if launches[kname] != n:
+                    failures.append(f"{run}: {kname} launched "
+                                    f"{launches[kname]} times, not {n}")
+            if counts["all_gather"] != int(bool(b_sharded)):
+                failures.append(f"{run}: all_gather {counts['all_gather']}")
+    return failures
+
+
+def ring_phase(torch, bt, dev, suite, results, refs):
+    """Phase 12: make_ring_sddmm(emit="csr") on banded_mesh_32k and
+    community_20k at K=128 over PAR_N shards: check_data, agreement with
+    its plain build and the single-device output, bsr_dense PAR_N^2
+    launches a call (and dense_tile where the plan has gathered tiles),
+    PAR_N - 1 hops per shard and no all-gather."""
+    from bsmr_sddmm_tpu_torch.parallel import (make_mesh, make_ring_sddmm,
+                                               ring_operands)
+    devices, where = mesh_devices(torch)
+    mesh = make_mesh(devices=devices)
+    n, failures = PAR_N, []
+    for name, alpha, gb in PAR_ARMS:
+        ref = single_reference(torch, bt, dev, suite, refs, name, alpha, gb)
+        t0 = time.perf_counter()
+        fn, plan = make_ring_sddmm(ref["csr"], ref["reord"], ref["cfg"],
+                                   mesh, emit="csr")
+        plain_fn = make_ring_sddmm(ref["csr"], ref["reord"], ref["cfg"],
+                                   mesh, emit="csr", backend="torch")[0]
+        args = ring_operands(ref["A"], ref["Bt"], plan, mesh)
+        out, launches, counts = counted_call(torch, fn, args, devices,
+                                             results)
+        run = f"ring {name}"
+        line = hold(torch, run, out, plain_fn(*args), ref, failures)
+        ms = time_mesh(torch, fn, args, devices)
+        Tg = plan.tiles_g_per_group
+        say(f"[ring] {name} K=128 n={n} ({where}): {line}; "
+            f"{say_ms(ms, ref['ms'])}; w "
+            f"{plan.w}, Td {plan.tiles_per_group}, Tg {Tg} "
+            f"({plan.num_gathered} real), E {plan.res_per_group}; launches "
+            f"{launches}; collectives {counts}; wall "
+            f"{time.perf_counter() - t0:.1f} s")
+        want = {"bsr_dense": n * n, "dense_tile": n * n if Tg else 0,
+                "subpack": 0, "fused_gathered": 0}
+        for kname, k in want.items():
+            if launches[kname] != k:
+                failures.append(f"{run}: {kname} launched {launches[kname]} "
+                                f"times, not {k}")
+        if (counts["ring_shift"], counts["shard_hops"],
+                counts["all_gather"]) != (n - 1, n * (n - 1), 0):
+            failures.append(f"{run}: collectives {counts}")
+    return failures
+
+
+def weak_phase(torch, results):
+    """Phase 13: sddmm_weak_scaling([1, 2, 4]) at its defaults (8192 rows
+    and 500 000 nnz a shard, 8192 columns, K=128, band 256, ph 32): the
+    shards of a count share one shape, each shard's output slots stay
+    within 2x of one shard's, the replicated-B rphm path runs no
+    collective, and ms a call by CUDA events."""
+    from bsmr_sddmm_tpu_torch.parallel import collectives, distributed
+    devices, where = mesh_devices(torch)
+    zero_launches()
+    collectives.zero_counts()
+    res = distributed.sddmm_weak_scaling([1, 2, PAR_N], devices=devices)
+    launches = read_launches(results)
+    counts = collectives.read_counts()
+    one_card = len(set(devices)) == 1
+    failures = [] if not any(counts.values()) else [
+        f"weak: collectives on the rphm path {counts}"]
+
+    def slots(shape):   # (T + Tp + Tg) tiles of 32 x 128, E residual slots
+        T, Tp, Tg, E, _ = shape
+        return (T + Tp + Tg) * 32 * 128 + E
+
+    base = slots(res[1]["shard_shapes"][0])
+    for n, rec in sorted(res.items()):
+        shapes = rec["shard_shapes"]
+        say(f"[weak] n={n} ({where}): {rec['ms']:.4f} ms a call (CUDA "
+            f"events), {rec['nnz_per_s']:.4g} nnz/s, efficiency "
+            f"{rec['efficiency']:.3f}"
+            + (" (serial on one card: not a scaling figure)" if one_card
+               else "")
+            + f"; shard shapes (T, Tp, Tg, E, panels) {shapes[0]}, output "
+              f"slots {slots(shapes[0])} ({slots(shapes[0]) / base:.2f}x "
+              f"n=1)")
+        if len(set(shapes)) != 1:
+            failures.append(f"weak: n={n} shards differ in shape {shapes}")
+        if slots(shapes[0]) > 2 * base:
+            failures.append(f"weak: n={n} shard slots {slots(shapes[0])} "
+                            f"above 2x n=1's {base}")
+    say(f"[weak] launches {launches}; collectives {counts}")
+    if launches["bsr_dense"] <= 0:
+        failures.append("weak: bsr_dense never launched")
+    return failures
+
+
+def run_workers(backend, devices):
+    """Two worker processes (python -m bsmr_sddmm_tpu_torch.parallel.worker)
+    on ``backend``, process i on ``devices[i]``, on banded_mesh_32k; their
+    JSON lines, and the failures. Both are stopped before it returns."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(HERE), os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.parallel.worker", str(pid), "2",
+         port, "--device", devices[pid], "--backend", backend, "--matrix",
+         "banded_mesh_32k"], cwd=str(HERE), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    recs, failures = [], []
+    try:
+        for pid, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=WORKER_TIMEOUT_S)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            if proc.returncode != 0 or not lines:
+                failures.append(f"multihost {backend}: worker {pid} exit "
+                                f"{proc.returncode}: {out[-2000:]} "
+                                f"{err[-4000:]}")
+                continue
+            recs.append(json.loads(lines[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs, failures
+
+
+def multihost_phase(torch):
+    """Phase 14: two worker processes, each owning 2 shards of one 4-shard
+    mesh, on banded_mesh_32k at K=128: on gloo with both on cuda:0 (CUDA
+    tensors staged through host memory), and on nccl with a card each
+    where 2 cards are visible. Both lines must read check and ring_check
+    pass, 4 shards, 2 processes and one plan hash."""
+    failures = []
+    arms = [("gloo", ["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() >= 2:
+        arms.append(("nccl", ["cuda:0", "cuda:1"]))
+    for backend, devices in arms:
+        t0 = time.perf_counter()
+        recs, found = run_workers(backend, devices)
+        failures += found
+        for rec in recs:
+            say(f"[multihost] {backend}: {json.dumps(rec)}")
+            ok = (rec["check"], rec["ring_check"], rec["global_devices"],
+                  rec["num_processes"], rec["shards"]) == \
+                ("pass", "pass", 4, 2, 4)
+            sc, rc = rec["sharded_counts"], rec["ring_counts"]
+            ok = ok and (sc["all_gather"], rc["ring_shift"],
+                         rc["all_gather"]) == (1, 3, 0)
+            ok = ok and rec["host_staged"] == (backend == "gloo")
+            ok = ok and sc["bsr_dense"] == 2 and rc["bsr_dense"] == 8
+            if not ok:
+                failures.append(f"multihost {backend}: {rec}")
+        if len(recs) == 2 and recs[0]["plan_hash"] != recs[1]["plan_hash"]:
+            failures.append(f"multihost {backend}: plan hashes differ")
+        say(f"[multihost] {backend} on {devices}: "
+            + ("host-staged (gloo moves host buffers); " if backend ==
+               "gloo" else "") + f"wall {time.perf_counter() - t0:.1f} s")
+    if len(arms) == 1:
+        say("[multihost] nccl: NOT RUN on this machine "
+            f"({torch.cuda.device_count()} card visible; NCCL needs a card "
+            "per process)")
     return failures
 
 
@@ -1425,6 +1798,14 @@ def main() -> int:
                       suite["community_20k"], results, smi)
     failures += timed("batched", batched_phase, torch, bt, dev,
                       suite["community_20k"], results)
+    refs = {}
+    failures += timed("sharded", sharded_phase, torch, bt, dev, suite,
+                      results, picks, refs)
+    failures += timed("ring", ring_phase, torch, bt, dev, suite, results,
+                      refs)
+    refs.clear()
+    failures += timed("weak", weak_phase, torch, results)
+    failures += timed("multihost", multihost_phase, torch)
     failures += timed("bench", bench_phase, torch, bt, dev, suite, results)
     if failures:
         fail(f"{failures}")

@@ -417,7 +417,14 @@ def test_port_never_imports_jax():
         "bsmr_sddmm_tpu_torch.bench.analyze, "
         "bsmr_sddmm_tpu_torch.bench.plot, bsmr_sddmm_tpu_torch.bench.runner, "
         "bsmr_sddmm_tpu_torch.bench.suite, "
-        "bsmr_sddmm_tpu_torch.bench.replica_suite\n"
+        "bsmr_sddmm_tpu_torch.bench.replica_suite, "
+        "bsmr_sddmm_tpu_torch.parallel, "
+        "bsmr_sddmm_tpu_torch.parallel.sharding, "
+        "bsmr_sddmm_tpu_torch.parallel.ring, "
+        "bsmr_sddmm_tpu_torch.parallel.distributed, "
+        "bsmr_sddmm_tpu_torch.parallel.scaling_model, "
+        "bsmr_sddmm_tpu_torch.parallel.collectives, "
+        "bsmr_sddmm_tpu_torch.parallel.worker\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'bsmr_sddmm_tpu.')) "
         "or m == 'bsmr_sddmm_tpu')\n"
