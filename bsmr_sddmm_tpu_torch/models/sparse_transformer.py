@@ -11,7 +11,7 @@ through them (``ops.graph_rphm.make_diff_sddmm_body``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,12 +19,13 @@ import torch.nn.functional as F
 
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import COO, CSR
-from bsmr_sddmm_tpu_torch.models._common import (SparseAttentionNet,
+from bsmr_sddmm_tpu_torch.models._common import (Plans, SparseAttentionNet,
                                                  attention_head, dense,
                                                  layer_params,
                                                  make_adam_step)
-from bsmr_sddmm_tpu_torch.ops.sddmm import DevicePlan, resolve_device
+from bsmr_sddmm_tpu_torch.ops.sddmm import resolve_device
 from bsmr_sddmm_tpu_torch.pack import TilePlan
+from bsmr_sddmm_tpu_torch.parallel.sharding import Mesh
 
 
 def local_strided_mask(seq_len: int, window: int = 128,
@@ -89,10 +90,10 @@ def init_params(model: SparseTransformer, seed: int = 0) -> Dict:
 
 class SparseTransformerNet(SparseAttentionNet):
     """``net(tokens (seq_len,), dplan) -> (seq_len, vocab)`` next-token
-    logits."""
+    logits; ``dplan`` is the list of the owned shards' device plans on a
+    net built over a mesh."""
 
-    def forward(self, tokens: torch.Tensor, dplan: DevicePlan
-                ) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, dplan: Plans) -> torch.Tensor:
         x = self.embed.index_select(0, tokens) + self.pos
         return self.layers(x, dplan) @ self.unembed
 
@@ -100,28 +101,34 @@ class SparseTransformerNet(SparseAttentionNet):
 def make_forward(model: SparseTransformer, mask: Optional[CSR] = None,
                  config: Optional[SddmmConfig] = None,
                  window: int = 128, stride: int = 64,
-                 params: Optional[Dict] = None, device=None
-                 ) -> Tuple[SparseTransformerNet, DevicePlan, TilePlan]:
+                 params: Optional[Dict] = None, device=None,
+                 mesh: Optional[Mesh] = None
+                 ) -> Tuple[SparseTransformerNet, Plans,
+                            Union[TilePlan, List[TilePlan]]]:
     """``(net, dplan, plan)``: the transformer with its sparse attention
     bound to the packed mask plan (``local_strided_mask`` by default; the
     config defaults to ``SddmmConfig(k=head_dim, delta=0.05)``, its k set to
     ``head_dim``). ``params`` (``init_params``'s layout, default
     ``init_params(model)``) are copied onto ``device``, the CUDA device
-    unless the caller names another; ``dplan`` is the full device plan."""
-    device = resolve_device(device)
+    unless the caller names another; ``dplan`` is the full device plan.
+    With a ``mesh``, as ``graph_transformer.make_forward``: the owned
+    shards' device plans, every shard's plan, ``device`` the first owned
+    shard's by default."""
+    device = resolve_device(device if device is not None or mesh is None
+                            else mesh.devices[0])
     mask = mask if mask is not None else local_strided_mask(
         model.seq_len, window=window, stride=stride)
     config = config or SddmmConfig(k=model.head_dim, delta=0.05)
     head_fn, dplan, plan = attention_head(mask, config, model.head_dim,
-                                          device)
+                                          device, mesh)
     net = SparseTransformerNet(
         init_params(model) if params is None else params, head_fn,
-        model.num_heads, model.head_dim, model.num_layers, device)
+        model.num_heads, model.head_dim, model.num_layers, device, mesh)
     return net, dplan, plan
 
 
 def loss_fn(net: SparseTransformerNet, tokens: torch.Tensor,
-            dplan: DevicePlan) -> torch.Tensor:
+            dplan: Plans) -> torch.Tensor:
     """Mean next-token cross-entropy of one sequence."""
     logp = F.log_softmax(net(tokens, dplan)[:-1], dim=-1)
     return -logp.gather(1, tokens[1:, None].long()).mean()
@@ -132,5 +139,5 @@ def make_train_step(model: SparseTransformer, net: SparseTransformerNet,
                     ) -> Tuple[Callable, Callable]:
     """``(opt_init, train_step)``: ``opt = opt_init()`` (Adam, as
     optax.adam), ``train_step(opt, tokens, dplan) -> loss`` updates
-    ``net`` in place."""
+    ``net`` in place (``dplan`` a list on a net built over a mesh)."""
     return make_adam_step(net, loss_fn, learning_rate)

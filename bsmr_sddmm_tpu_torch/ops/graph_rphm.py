@@ -203,7 +203,10 @@ def _spmm_parts(plan: TilePlan) -> tuple:
     Tp = _num_packed(plan)
     # row r sits at position inv_pos[r] of the permuted layout; pad slots
     # repeat row 0 after its real slot, so the first occurrence is the real
-    # one; rows absent from the permutation read the zero row at n_rows
+    # one; rows absent from the permutation read the zero row at n_rows. On
+    # a shard plan (pack_shard_plans) row 0 may be another shard's: its
+    # first occurrence is then a pad row, whose slots are all invalid, so
+    # the row comes back exactly 0 and sends no gradient
     inv_pos = np.full(M, n_rows, np.int64)
     uniq, first = np.unique(plan.row_perm_padded.astype(np.int64),
                             return_index=True)
@@ -407,7 +410,10 @@ def make_sparse_attention_rphm(plan: TilePlan, body: Callable) -> Callable:
     F) = SpMM(softmax(SDDMM(q, k) / sqrt(dk)), v)``, differentiable end to
     end (the SDDMM through :func:`make_diff_sddmm_body`, the SpMM through
     its own fp32 backward, the softmax through torch's own rules). ``body``
-    is a ``make_sddmm_body(..., emit="rphm")`` callable."""
+    is a ``make_sddmm_body(..., emit="rphm")`` callable. Over a mesh one
+    head is built per shard plan around one body of ``plans[0]``: the
+    shapes are common, the constants (column map, row positions) each
+    plan's own."""
     softmax = make_edge_softmax_rphm(plan)
     spmm = make_spmm_rphm(plan)
     diff_body = make_diff_sddmm_body(plan, body)

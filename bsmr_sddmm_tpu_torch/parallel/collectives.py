@@ -1,4 +1,4 @@
-"""The three collectives of the parallel layer, and their counters.
+"""The collectives of the parallel layer, and their counters.
 
 The JAX package never names a collective outside its bodies: ``shard_map``
 hands every device its shard, ``jax.lax.all_gather`` and ``ppermute`` move
@@ -14,21 +14,35 @@ shard this process owns, each on its shard's device.
 * :func:`ring_shift`: one hop of the ring, shard d receiving the tensor of
   shard (d + 1) % n (the ring's ``ppermute``);
 * :func:`csr_gather`: the tier arrays of every shard laid out tier-major,
-  shard-major, and read along a map: the CSR emission's gather.
+  shard-major, and read along a map: the CSR emission's gather;
+* :func:`to_shards` and :func:`from_shards`: the two ends of the sharded
+  train step (``models._common.SparseAttentionNet``), which autograd
+  differentiates: a replicated tensor handed to every shard (backward: the
+  sum of the shards' gradients) and the sum of the shards' partial
+  results, replicated (backward: the same gradient to every shard). They
+  stand for what GSPMD inserts around the JAX package's
+  ``shard_device_plan`` train step (``models.*.make_train_step``).
 
 Inside one process these are tensor copies between the mesh's devices (no
 copy where two shards share a device). Across processes they go through
 ``torch.distributed``: ``all_gather_into_tensor`` for the gathers, and for
 the ring one ``batch_isend_irecv`` pair per process and hop (only the
 boundary shard crosses the process boundary; the send and the receive are
-posted together, so the ring cannot deadlock). On the ``gloo`` backend a
-CUDA tensor is staged through host memory (gloo moves host buffers);
-``nccl`` moves device memory and needs a card of its own per process.
+posted together, so the ring cannot deadlock), and for the train step's
+two ends one ``all_reduce``, in ``from_shards``' forward and in
+``to_shards``' backward: ``torch.distributed`` collectives carry no
+gradient, so both are autograd functions, and every process ends a
+backward with the same parameter gradients (no parameter all-reduce). On
+the ``gloo`` backend a CUDA tensor is staged through host memory (gloo
+moves host buffers); ``nccl`` moves device memory and needs a card of its
+own per process.
 
 Each call adds to :data:`COUNTS`: calls per operation, shard hops (one per
-owned shard and ring hop) and the bytes this process received from other
-processes. :func:`zero_counts` and :func:`read_counts` reset and read them,
-as ``dense_kernels``' launch counters are reset and read.
+owned shard and ring hop), the cross-process ``all_reduce`` calls (forward
+and backward) and the bytes this process received from other processes
+(``world_size - 1`` times the buffer for a gather or an all-reduce).
+:func:`zero_counts` and :func:`read_counts` reset and read them, as
+``dense_kernels``' launch counters are reset and read.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import torch
 
 #: calls per operation, shard hops and bytes received from other processes
 COUNTS = dict(all_gather=0, ring_shift=0, csr_gather=0, shard_hops=0,
+              to_shards=0, from_shards=0, all_reduce=0,
               cross_process_bytes=0)
 
 
@@ -140,3 +155,66 @@ def csr_gather(tiers: Sequence[Sequence[torch.Tensor]],
     full = _gather_processes(torch.cat(flat), mesh).view(mesh.world_size, -1)
     return torch.cat([piece.reshape(-1) for piece in full.split(lens, dim=1)]
                      ).index_select(0, index)
+
+
+def _all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``t`` over every process (one ``all_reduce``), as a new
+    tensor on ``t``'s device."""
+    send = _wire(t.detach())
+    buf = send.clone() if send.data_ptr() == t.data_ptr() else send
+    _dist().all_reduce(buf)
+    COUNTS["all_reduce"] += 1
+    COUNTS["cross_process_bytes"] += (mesh.world_size - 1) * buf.nbytes
+    return buf.to(t.device)
+
+
+class _SumForward(torch.autograd.Function):
+    """Forward: the sum over processes; backward: the gradient as it is
+    (every process holds the same gradient of the replicated sum)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return _all_reduce(t, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Forward: the tensor as it is; backward: the sum of the gradients
+    over processes (each process holds its own shards' share)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.contiguous(), ctx.mesh), None
+
+
+def to_shards(x: torch.Tensor, mesh) -> List[torch.Tensor]:
+    """The replicated ``x`` on each owned shard's device (one copy a
+    device, shared by its shards). Backward: the sum of every shard's
+    gradient, over this process's shards (autograd sums the copies) and
+    across processes (one ``all_reduce``)."""
+    COUNTS["to_shards"] += 1
+    if mesh.world_size > 1:
+        x = _SumBackward.apply(x, mesh)
+    return per_device(x.to, mesh.devices)
+
+
+def from_shards(parts: Sequence[torch.Tensor], mesh,
+                device: torch.device) -> torch.Tensor:
+    """The sum of every shard's tensor (``parts`` holds the owned shards'
+    tensors, all of one shape), replicated: on ``device`` in every
+    process. Backward: the same gradient to every shard."""
+    COUNTS["from_shards"] += 1
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    if mesh.world_size > 1:
+        total = _SumForward.apply(total, mesh)
+    return total

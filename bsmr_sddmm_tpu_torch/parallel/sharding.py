@@ -125,8 +125,13 @@ def shard_device_plan(plan: TilePlan, mesh: Mesh) -> List[DevicePlan]:
     the mesh (after padding to a multiple of its size), permutation and
     emission maps replicated; one DevicePlan per owned shard, on its
     device. This is the data-parallel split of the JAX package's
-    ``shard_device_plan`` (there a GSPMD annotation); the multi-device
-    execution path is :func:`make_sharded_sddmm`."""
+    ``shard_device_plan`` (there a GSPMD annotation, under which the JAX
+    models' ``make_train_step`` is partitioned); nothing here executes on
+    it, because it cuts rows across shards and, when the mesh size does
+    not divide the fat steps, pads ``tile_panel`` and ``tile_src`` apart.
+    The multi-device execution paths run on per-shard packed plans
+    instead: :func:`make_sharded_sddmm` for the SDDMM, and for training
+    ``models.*.make_forward(..., mesh=)`` (``models._common``)."""
     n = mesh.size
     if plan.mode != "bsr":
         tile_src = plan.tile_cols

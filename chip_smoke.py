@@ -92,7 +92,18 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    and the ring's hops cross the process boundary; both check pass, one
    plan hash; over nccl with a card per process where 2 cards are visible
    (else printed as not run);
-15. bench: bench.suite.run on banded_mesh_32k and community_20k at K 64,
+15. train-sharded: both model families' Adam step over a 4-shard mesh
+   (models.*.make_forward(..., mesh=)) at full width: the graph
+   transformer of phase 9 on community_20k (at the worker's TRAIN_LR,
+   1e-5) and its sparse transformer. Logits and every gradient against
+   the same step built on the plain versions (backend="torch") and
+   against the single-device kernel step; bsr_dense and subpack launched
+   once per shard, head and layer of every forward; three Adam steps that
+   lower the loss, ms a step (CUDA events, steps 2-3) beside the
+   single-device step's in the same phase, and one step's torch.profiler
+   split; then two parallel.worker --train processes on cuda:0 over gloo
+   with one parameter hash, whose losses equal the one-process steps';
+16. bench: bench.suite.run on banded_mesh_32k and community_20k at K 64,
    128 and 256 with bench.py's R4_BEST arms (6 cells and an fp16 sibling,
    each validated), bsr_dense's launches and route at each K, the per-K
    geomean; then bench.runner.run_suite on community_20k saved as .mtx
@@ -1006,19 +1017,20 @@ def step_split(torch, step, *args):
                 top=[(key, us / 1e3) for key, us in top]), loss
 
 
-def say_split(tag, split, smi):
+def say_split(tag, split, smi, phase="train"):
     if not split["total"]:
-        say(f"[train] {tag}: no device time in the trace: not measured")
+        say(f"[{phase}] {tag}: no device time in the trace: not measured")
         return
     parts = ", ".join(
         f"{label} {split[key]:.3f} ms ({split[key] / split['total']:.0%})"
         for key, label in (("hand", "hand kernels"),
                            ("body", "rest of the SDDMM body"),
                            ("spmm", "backward SpMMs"), ("rest", "the rest")))
-    say(f"[train] {tag} one step under torch.profiler: device busy "
+    say(f"[{phase}] {tag} one step under torch.profiler: device busy "
         f"{split['total']:.3f} ms: {parts}; {smi}")
     for key, ms in split["top"]:
-        say(f"[train]   {ms:.3f} ms {ms / split['total']:5.1%}  {key[:100]}")
+        say(f"[{phase}]   {ms:.3f} ms {ms / split['total']:5.1%}  "
+            f"{key[:100]}")
 
 
 def head_against_csr(torch, head_fn, dplan, csr, k, dev):
@@ -1636,10 +1648,12 @@ def weak_phase(torch, results):
     return failures
 
 
-def run_workers(backend, devices):
+def run_workers(backend, devices, args=("--matrix", "banded_mesh_32k")):
     """Two worker processes (python -m bsmr_sddmm_tpu_torch.parallel.worker)
-    on ``backend``, process i on ``devices[i]``, on banded_mesh_32k; their
-    JSON lines, and the failures. Both are stopped before it returns."""
+    on ``backend``, process i on ``devices[i]``, with the worker's
+    arguments ``args`` (the sharded SDDMM on banded_mesh_32k by default);
+    their JSON lines, and the failures. Both are stopped before it
+    returns."""
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -1648,8 +1662,8 @@ def run_workers(backend, devices):
         p for p in (str(HERE), os.environ.get("PYTHONPATH")) if p))
     procs = [subprocess.Popen(
         [sys.executable, "-m", f"{PKG}.parallel.worker", str(pid), "2",
-         port, "--device", devices[pid], "--backend", backend, "--matrix",
-         "banded_mesh_32k"], cwd=str(HERE), env=env, stdout=subprocess.PIPE,
+         port, "--device", devices[pid], "--backend", backend, *args],
+        cwd=str(HERE), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for pid in range(2)]
     recs, failures = [], []
     try:
@@ -1705,6 +1719,169 @@ def multihost_phase(torch):
         say("[multihost] nccl: NOT RUN on this machine "
             f"({torch.cuda.device_count()} card visible; NCCL needs a card "
             "per process)")
+    return failures
+
+
+#: the two-process steps' losses against the one-process steps': the
+#: forward sums each row from one shard only; k's and v's gradients are
+#: summed in another order, and index_add on the card in no fixed order
+SHARDED_LOSS_RTOL = 1e-5
+
+
+def time_steps(step, opt, *args):
+    """A warm-up step, then two steps timed by CUDA events
+    (``utils.timing.time_cuda``): the three losses and the ms a step of
+    the last two."""
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda
+    losses = []
+    ms, _ = time_cuda(lambda: losses.append(step(opt, *args)), iterations=2)
+    return [float(x) for x in losses], ms
+
+
+def train_sharded_phase(torch, dev, results, smi):
+    """Phase 15: both model families' Adam step over a PAR_N-shard mesh
+    (``make_forward(..., mesh=)``) at full width: the graph transformer of
+    [train] on community_20k (its inputs ``parallel.worker.
+    train_problem``'s) and the sparse transformer of SEQ_MODEL. Logits and
+    every gradient against the same step on the plain versions
+    (backend="torch") and against the single-device kernel step;
+    ``bsr_dense`` and ``subpack`` launched once per shard, head and layer
+    of every forward; three Adam steps that lower the loss, ms a step by
+    CUDA events beside the single-device step's, launches per step and a
+    torch.profiler split; then two ``parallel.worker --train`` processes
+    on gloo (cuda:0 twice) whose losses and parameter hashes agree and
+    whose losses equal the one-process 4-shard steps'."""
+    import numpy as np
+    from bsmr_sddmm_tpu_torch.config import SddmmConfig
+    from bsmr_sddmm_tpu_torch.models import graph_transformer as gt
+    from bsmr_sddmm_tpu_torch.models import sparse_transformer as st
+    from bsmr_sddmm_tpu_torch.parallel import collectives, make_mesh, worker
+    devices, where = mesh_devices(torch)
+    mesh = make_mesh(devices=devices)
+    say(f"[train-sharded] mesh: {where}")
+    failures = []
+    csr, gcfg, gmodel, X, labels = worker.train_problem("community_20k")
+    if (dict(num_nodes=gmodel.num_nodes, feature_dim=gmodel.feature_dim,
+             head_dim=gmodel.head_dim) != GRAPH_MODEL
+            or gcfg != SddmmConfig(**GRAPH_CFG)):
+        failures.append(f"train-sharded: the worker's problem {gmodel} "
+                        f"{gcfg} is not [train]'s")
+    smodel = st.SparseTransformer(**SEQ_MODEL)
+    scfg = SddmmConfig(k=128, delta=0.05)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, smodel.vocab_size, smodel.seq_len)).to(dev)
+    graph_batch = (torch.from_numpy(X).to(dev),
+                   torch.from_numpy(labels).to(dev))
+    fams = (("graph", gt, gmodel, worker.TRAIN_LR, graph_batch,
+             lambda cfg, **kw: gt.make_forward(gmodel, csr, cfg, **kw),
+             gcfg),
+            ("sparse", st, smodel, 1e-3, (tokens,),
+             lambda cfg, **kw: st.make_forward(smodel, config=cfg,
+                                               **SEQ_MASK, **kw), scfg))
+    graph_losses = None
+    for name, mod, model, lr, batch, build, cfg in fams:
+        t0 = time.perf_counter()
+        net, dplan, plans = build(cfg, mesh=mesh)
+        nets = {"plain build": build(cfg.replace(backend="torch"),
+                                     mesh=mesh)[:2],
+                "single-device kernel step": build(cfg, device=dev)[:2]}
+        p0 = plans[0]
+        say(f"[train-sharded] {name} transformer ({model.num_heads} heads, "
+            f"{model.num_layers} layers, lr {lr}): {PAR_N} shard plans of "
+            f"(T, Tp, Tg, E) = ({p0.tile_panel.shape[0]}, "
+            f"{p0.sp_panel.shape[0]}, {p0.g_panel.shape[0]}, "
+            f"{p0.res_arow.shape[0]}) each, G={p0.fat_group}; three nets "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        per_forward = PAR_N * model.num_heads * model.num_layers
+        want = {k: per_forward * bool(n) for k, n in (
+            ("bsr_dense", p0.tile_panel.shape[0]),
+            ("subpack", p0.sp_panel.shape[0]))}
+        zero_launches()
+        collectives.zero_counts()
+        with torch.no_grad():
+            logits = net(batch[0], dplan)
+        mod.loss_fn(net, *batch, dplan).backward()
+        torch.cuda.synchronize()
+        launches = read_launches(results)
+        counts = collectives.read_counts()
+        say(f"[train-sharded]   a forward, and a forward and backward: "
+            f"launches {launches} (want {want} a forward: {PAR_N} shards x "
+            f"{model.num_heads} heads x {model.num_layers} layers); "
+            f"collectives {counts}")
+        failures += [f"train-sharded {name}: {k} launched {launches[k]} "
+                     f"times, not {2 * n}" for k, n in want.items()
+                     if launches[k] != 2 * n]
+        if not all(want.values()):
+            failures.append(f"train-sharded {name}: a tier kernel has no "
+                            f"work ({want})")
+        for ref, (m, dp) in nets.items():
+            with torch.no_grad():
+                err, ok = max_err(torch, logits, m(batch[0], dp))
+            mod.loss_fn(m, *batch, dp).backward()
+            grads = grad_errors(net, m)
+            worst = max(grads, key=lambda g: g[1])
+            good = all(g[2] for g in grads)
+            say(f"[train-sharded]   vs the {ref}: logits max_abs {err:.3e} "
+                f"({'ok' if ok else 'MISMATCH'} at {LOGIT_TOL}); gradients "
+                f"of {len(grads)} parameters, largest max_abs "
+                f"{worst[1]:.3e} ({worst[0]}), "
+                f"{'all ok' if good else 'MISMATCH'} at rtol {GRAD_RTOL} + "
+                f"atol {GRAD_ATOL_SCALE} x max|g|")
+            if not ok:
+                failures.append(f"train-sharded {name}: logits off the "
+                                f"{ref} by {err:.3e}")
+            failures += [f"train-sharded {name}: gradient of {n} off the "
+                         f"{ref} by {e:.3e}" for n, e, g in grads if not g]
+        single, sdp = nets.pop("single-device kernel step")
+        del nets, logits
+        zero_launches()
+        opt_init, step = mod.make_train_step(model, net, lr)
+        opt = opt_init()
+        losses, step_ms = time_steps(step, opt, *batch, dplan)
+        launches = read_launches(results)
+        split, _ = step_split(torch, step, opt, *batch, dplan)
+        opt_init, step1 = mod.make_train_step(model, single, lr)
+        losses1, single_ms = time_steps(step1, opt_init(), *batch, sdp)
+        say(f"[train-sharded]   Adam steps: losses "
+            f"{[round(x, 5) for x in losses]} (single device "
+            f"{[round(x, 5) for x in losses1]}); {step_ms:.3f} ms a step "
+            f"(CUDA events, steps 2-3; {step_ms / single_ms:.2f}x the "
+            f"single-device step's {single_ms:.3f} ms, same call); launches "
+            f"a step {({k: n / 3 for k, n in launches.items()})}; {smi}")
+        say_split(f"{name} transformer over {PAR_N} shards", split, smi,
+                  "train-sharded")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[2] < losses[0]):
+            failures.append(f"train-sharded {name}: losses {losses}")
+        failures += [f"train-sharded {name} steps: {k} launched "
+                     f"{launches[k]} times, not {3 * n}"
+                     for k, n in want.items() if launches[k] != 3 * n]
+        if name == "graph":
+            graph_losses = losses
+        del net, single, opt
+    # two processes, 2 shards each, on cuda:0 over gloo
+    t0 = time.perf_counter()
+    recs, found = run_workers("gloo", ["cuda:0", "cuda:0"],
+                              ("--train", "--matrix", "community_20k"))
+    failures += [f"train-sharded {f}" for f in found]
+    for rec in recs:
+        say(f"[train-sharded] worker --train: {json.dumps(rec)}")
+        ok = (rec["check"], rec["shards"], rec["num_processes"],
+              rec["host_staged"]) == ("pass", 4, 2, True)
+        c = rec["counts"]
+        ok = ok and c["all_reduce"] == 2 * c["to_shards"] > 0
+        ok = ok and c["cross_process_bytes"] > 0 and c["bsr_dense"] > 0
+        ok = ok and np.allclose(rec["losses"], graph_losses,
+                                rtol=SHARDED_LOSS_RTOL, atol=0)
+        if not ok:
+            failures.append(f"train-sharded worker: {rec}")
+    if len(recs) == 2 and (recs[0]["param_hash"] != recs[1]["param_hash"]
+                           or recs[0]["losses"] != recs[1]["losses"]):
+        failures.append("train-sharded worker: the processes differ")
+    say(f"[train-sharded] worker --train on cuda:0 twice over gloo: losses "
+        f"vs the one-process {PAR_N}-shard steps "
+        f"{graph_losses} at rtol {SHARDED_LOSS_RTOL}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
     return failures
 
 
@@ -1806,6 +1983,8 @@ def main() -> int:
     refs.clear()
     failures += timed("weak", weak_phase, torch, results)
     failures += timed("multihost", multihost_phase, torch)
+    failures += timed("train-sharded", train_sharded_phase, torch, dev,
+                      results, smi)
     failures += timed("bench", bench_phase, torch, bt, dev, suite, results)
     if failures:
         fail(f"{failures}")

@@ -424,7 +424,9 @@ def test_port_never_imports_jax():
         "bsmr_sddmm_tpu_torch.parallel.distributed, "
         "bsmr_sddmm_tpu_torch.parallel.scaling_model, "
         "bsmr_sddmm_tpu_torch.parallel.collectives, "
-        "bsmr_sddmm_tpu_torch.parallel.worker\n"
+        "bsmr_sddmm_tpu_torch.parallel.worker, "
+        "bsmr_sddmm_tpu_torch.models, "
+        "bsmr_sddmm_tpu_torch.models.sparse_transformer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'bsmr_sddmm_tpu.')) "
         "or m == 'bsmr_sddmm_tpu')\n"

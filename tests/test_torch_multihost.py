@@ -4,7 +4,13 @@ tests/test_multihost.py): each bootstraps with
 4-shard mesh, and runs ``python -m bsmr_sddmm_tpu_torch.parallel.worker``:
 the b-sharded all-gather and every ring hop cross the process boundary.
 Both processes check both full outputs against the fp64 oracle (check_data:
-abs 1e-5 OR rel 1e-3) and must have packed the same plans."""
+abs 1e-5 OR rel 1e-3) and must have packed the same plans.
+
+With ``--train`` the two processes take three Adam steps of the graph
+transformer together: both must end with the same parameters (one hash),
+and their losses must equal those of the same steps over a 4-shard mesh
+in one process within 1e-6 (a row is summed from one shard only, so the
+forward is exact; k's and v's gradients are summed in another order)."""
 
 import json
 import os
@@ -21,13 +27,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_process_sharded_sddmm_on_gloo():
+def run_workers(*extra) -> list:
+    """Two worker processes on gloo with 2 CPU shards each: their JSON
+    lines."""
     port = str(free_port())
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
     procs = [subprocess.Popen(
         [sys.executable, "-m", "bsmr_sddmm_tpu_torch.parallel.worker",
-         str(pid), "2", port, "--device", "cpu", "--backend", "gloo"],
+         str(pid), "2", port, "--device", "cpu", "--backend", "gloo",
+         *extra],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=env) for pid in range(2)]
     recs = []
@@ -42,6 +51,11 @@ def test_two_process_sharded_sddmm_on_gloo():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    return recs
+
+
+def test_two_process_sharded_sddmm_on_gloo():
+    recs = run_workers()
     for pid, rec in enumerate(recs):
         assert rec["process"] == pid
         assert rec["check"] == "pass" and rec["ring_check"] == "pass"
@@ -54,6 +68,40 @@ def test_two_process_sharded_sddmm_on_gloo():
             (3, 6, 0)
         assert sc["cross_process_bytes"] > 0 and rc["cross_process_bytes"] > 0
     assert recs[0]["plan_hash"] == recs[1]["plan_hash"]
+
+
+def test_two_process_train_steps_on_gloo():
+    import numpy as np
+    import torch
+
+    from bsmr_sddmm_tpu_torch.models import graph_transformer as gt
+    from bsmr_sddmm_tpu_torch.parallel import make_mesh, worker
+    recs = run_workers("--train")
+    for pid, rec in enumerate(recs):
+        assert rec["process"] == pid and rec["train"] is True
+        assert rec["check"] == "pass" and rec["shards"] == 4
+        assert rec["global_devices"] == 4 and rec["num_processes"] == 2
+        c = rec["counts"]
+        steps, layers = worker.TRAIN_STEPS, 2
+        # one to_shards and one from_shards a layer and step; each
+        # all-reduces once across the processes (forward or backward)
+        assert c["to_shards"] == c["from_shards"] == steps * layers
+        assert c["all_reduce"] == 2 * steps * layers
+        assert c["cross_process_bytes"] > 0
+        assert len(rec["losses"]) == steps
+    assert recs[0]["param_hash"] == recs[1]["param_hash"]
+    assert recs[0]["losses"] == recs[1]["losses"]
+    assert recs[0]["plan_hash"] == recs[1]["plan_hash"]
+    # the same steps over 4 shards in one process
+    csr, cfg, model, X, labels = worker.train_problem(None)
+    net, dplan, _ = gt.make_forward(model, csr, cfg,
+                                    mesh=make_mesh(devices=["cpu"] * 4))
+    opt_init, step = gt.make_train_step(model, net, worker.TRAIN_LR)
+    opt = opt_init()
+    X, labels = torch.from_numpy(X), torch.from_numpy(labels)
+    losses = [float(step(opt, X, labels, dplan))
+              for _ in range(worker.TRAIN_STEPS)]
+    np.testing.assert_allclose(recs[0]["losses"], losses, rtol=0, atol=1e-6)
 
 
 def test_worker_defaults_take_the_card(monkeypatch):

@@ -204,7 +204,8 @@ def test_sharded_sddmm_matches_reference_tier_by_tier(case, b_sharded):
     # the hot path: no collective with B replicated, one gather of B with
     # B sharded (the JAX tests read the same from the jaxpr)
     assert counts == dict(all_gather=int(b_sharded), ring_shift=0,
-                          csr_gather=0, shard_hops=0, cross_process_bytes=0)
+                          csr_gather=0, shard_hops=0, to_shards=0,
+                          from_shards=0, all_reduce=0, cross_process_bytes=0)
     nnz = tcsr.nnz
     scatters = [np.concatenate([getattr(p, name) for p in plans])
                 for name in ("tile_scatter", "sp_scatter", "g_scatter",

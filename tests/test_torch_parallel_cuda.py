@@ -1,7 +1,8 @@
 """The parallel layer on a CUDA device: the sharded SDDMM (B replicated and
-b-sharded, the fused gathered tier), the ring and ``emit="csr_scatter"``
-through the hand kernels, against the same built on the plain versions
-(``backend="torch"``), on a mesh of four shards on the first card.
+b-sharded, the fused gathered tier), the ring, ``emit="csr_scatter"`` and
+both model families' train step over the mesh through the hand kernels,
+against the same built on the plain versions (``backend="torch"``), on a
+mesh of four shards on the first card.
 
 Every test here needs the card (marker ``cuda``) and imports nothing of JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_parallel_cuda.py``.
@@ -9,7 +10,10 @@ Every test here needs the card (marker ``cuda``) and imports nothing of JAX:
 Tolerances: the kernels compute three TF32 passes where the plain versions
 take fp32 products, agreeing to a few fp32 ulps of each sum: rtol 1e-5 +
 atol 1e-4 on values in [0, 2) at K = 128, as chip_smoke.py holds them;
-against the fp64 oracle check_data (abs 1e-5 OR rel 1e-3)."""
+against the fp64 oracle check_data (abs 1e-5 OR rel 1e-3). The train step:
+logits at rtol/atol 2e-4 and every gradient at rtol 1e-3 + atol 1e-4 x
+that tensor's largest |g| (``index_add`` on the card sums in no fixed
+order), as tests/test_torch_train_cuda.py holds the single-device step."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,8 @@ import torch
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.datasets import banded
 from bsmr_sddmm_tpu_torch.formats import make_dense, random_mask
+from bsmr_sddmm_tpu_torch.models import graph_transformer as gt
+from bsmr_sddmm_tpu_torch.models import sparse_transformer as st
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
 from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
                                             sddmm_ref)
@@ -141,3 +147,80 @@ def test_csr_scatter_kernels_match_plain(cuda):
     assert got.shape == (nnz + 1,)
     torch.testing.assert_close(got[:nnz], plain[:nnz], **TOL)
     torch.testing.assert_close(got[:nnz], csr_out, rtol=0, atol=0)
+
+
+# the families at K=128 on a square mask (graph) and a local + strided mask
+# (sequence): (module, model, mask, config, learning rate of the descent)
+FAMILIES = {
+    "graph": (gt, dict(num_nodes=512, feature_dim=16, head_dim=128,
+                       num_heads=2, num_layers=2, num_classes=8),
+              dict(rows=512, cols=512, nnz=20000, seed=7, block_rows=24,
+                   block_cols=96), 1e-5),
+    "sparse": (st, dict(seq_len=1024, vocab_size=64, head_dim=128,
+                        num_heads=2, num_layers=1),
+               dict(window=128, stride=64), 1e-3),
+}
+
+
+def family(kind, device, mesh=None, backend="auto"):
+    mod, model_kw, mask_kw, _ = FAMILIES[kind]
+    cfg = SddmmConfig(**dict(BASE, backend=backend))
+    kw = dict(config=cfg, device=device, mesh=mesh)
+    if kind == "graph":
+        model = gt.GraphTransformer(**model_kw)
+        net, dplan, plan = gt.make_forward(model, random_mask(**mask_kw),
+                                           **kw)
+        rng = np.random.default_rng(2)
+        batch = (torch.from_numpy(rng.standard_normal(
+            (model.num_nodes, model.feature_dim)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, model.num_classes,
+                                          model.num_nodes)))
+    else:
+        model = st.SparseTransformer(**model_kw)
+        net, dplan, plan = st.make_forward(model, **mask_kw, **kw)
+        batch = (torch.from_numpy(np.random.default_rng(0).integers(
+            0, model.vocab_size, model.seq_len)),)
+    return mod, model, net, dplan, plan, tuple(b.to(device) for b in batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(FAMILIES))
+def test_sharded_train_step_kernels_match_plain(cuda, kind):
+    """The 4-shard step through the hand kernels against the same step on
+    the plain versions and against the single-device kernel step: logits
+    and every gradient; bsr_dense and subpack launched once per shard,
+    head and layer; three Adam steps lower the loss."""
+    mesh = make_mesh(devices=[cuda] * N)
+    mod, model, net, dplan, plans, batch = family(kind, cuda, mesh)
+    runs = {"sharded": (net, dplan),
+            "plain": family(kind, cuda, mesh, backend="torch")[2:4],
+            "single": family(kind, cuda)[2:4]}
+    logits = {}
+    for name, (m, dp) in runs.items():
+        before = launches()
+        with torch.no_grad():
+            logits[name] = m(batch[0], dp)
+        mod.loss_fn(m, *batch, dp).backward()
+        torch.cuda.synchronize()
+        launched = since(before)
+        if name == "sharded":
+            per = N * model.num_heads * model.num_layers * 2  # 2 forwards
+            assert launched["bsr_dense"] == per * bool(
+                plans[0].tile_panel.shape[0])
+            assert launched["subpack"] == per * bool(
+                plans[0].sp_panel.shape[0])
+            assert launched["bsr_dense"] and launched["subpack"]
+        elif name == "plain":
+            assert not any(launched.values())
+    for name in ("plain", "single"):
+        torch.testing.assert_close(logits["sharded"], logits[name],
+                                   rtol=2e-4, atol=2e-4)
+        for (pname, p), (_, q) in zip(net.named_parameters(),
+                                      runs[name][0].named_parameters()):
+            torch.testing.assert_close(
+                p.grad, q.grad, rtol=1e-3,
+                atol=1e-4 * float(q.grad.abs().max()), msg=pname)
+    opt_init, step = mod.make_train_step(model, net, FAMILIES[kind][3])
+    opt = opt_init()
+    losses = [float(step(opt, *batch, dplan)) for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[2] < losses[0]

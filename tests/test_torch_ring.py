@@ -146,7 +146,8 @@ def test_ring_matches_reference_tier_by_tier(case):
     got = fn(A_dev, Bt_dev)
     counts = collectives.read_counts()
     assert counts == dict(all_gather=0, ring_shift=n - 1, csr_gather=0,
-                          shard_hops=n * (n - 1), cross_process_bytes=0)
+                          shard_hops=n * (n - 1), to_shards=0, from_shards=0,
+                          all_reduce=0, cross_process_bytes=0)
     Tg = plan.tiles_g_per_group
     nnz = tcsr.nnz
     for name, r, g, sc in (
