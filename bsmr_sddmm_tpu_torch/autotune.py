@@ -44,7 +44,8 @@ import torch
 
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import CSR, make_dense, random_mask
-from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, make_sddmm_body
+from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
+                                            resolve_device)
 from bsmr_sddmm_tpu_torch.pack import TilePlan, pack_tiles
 from bsmr_sddmm_tpu_torch.reorder import BsmrReordering, bsmr, split_columns
 from bsmr_sddmm_tpu_torch.utils.timing import time_cuda_graph, time_host
@@ -458,15 +459,16 @@ def _time_tier(body, A, Bt, dplan) -> float:
 CALIBRATION_KS = (32, 128)
 
 
-def calibrate(store: bool = True, ks=CALIBRATION_KS) -> dict:
-    """Measure the four tier costs on the CUDA card (the CPU without one)
-    at each K in ``ks`` (small synthetic plans, each tier timed alone
-    through ``make_sddmm_body(..., only_tier=tier)``) and fit the affine
+def calibrate(store: bool = True, ks=CALIBRATION_KS, device=None) -> dict:
+    """Measure the four tier costs on ``device`` (default: the CUDA card;
+    without one it raises unless ``device="cpu"``) at each K in ``ks``
+    (small synthetic plans, each tier timed alone through
+    ``make_sddmm_body(..., only_tier=tier)``) and fit the affine
     base + slope*K model per tier. On the card the result is cached to
     disk keyed by the device name. Returns the refit cost table, which
     also becomes ``current_costs()`` in this process."""
     global _CALIBRATED
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device)
     costs = dict(V5E_COSTS)
 
     def tier_per_unit(csr, config, tier, delta, k):

@@ -42,16 +42,27 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    temporary directory), each point timed twice, the table held to its
    points (the byte-bound tiers' slopes above 0) and printed key by key
    next to V5E_COSTS, and both matrices re-priced with it;
-7. dense: the dense fallback (delta="dense") and the best tiled plan
+7. arms: the arm-selection tools (bsmr_sddmm_tpu_torch.tools) on
+   bench.suite.run(full_grid=True) at K=128 on banded_mesh_32k and
+   community_20k (24 fp32 arms and an fp16 sibling each, the first arm of
+   each matrix validated): check_autotune's parse of the echoed lines held
+   to the arms that ran and the V5E_COSTS host pick as a fraction of the
+   sweep best; audit_cost_model's measured / estimated geomean per matrix
+   and subpack; fit_costs_from_audit on the subpack-0 rows, its table
+   beside V5E_COSTS and its quality, written to the card's cost cache,
+   read back by current_costs() and the pick checked again under it;
+   probe_refine_pick's host and refined picks on community_20k;
+   profile_tiers on banded_mesh_32k;
+8. dense: the dense fallback (delta="dense") and the best tiled plan
    priced with V5E_COSTS, at its (delta, subpack), on
    datasets.uniform(4096, 350_000) at K=128 with validate=True, and the
    cost model's choice there and on a blocky mask;
-8. CLI: python -m bsmr_sddmm_tpu_torch.cli -f <suite matrix .mtx> -k 128
+9. CLI: python -m bsmr_sddmm_tpu_torch.cli -f <suite matrix .mtx> -k 128
    -a 0.3 -d 0.002 --validate exits 0, and so do the run with
    --col-mode reorder -d 0.05 --evaluate --tier-times --reorder-cache
    (BSMR_CACHE_DIR in a temporary directory) and the run with --auto-alpha
    --refine-top 3, which writes the BSMR_k_128_a_auto_d_auto log;
-9. train: the sparse transformer (seq_len 2048, vocab 64, head_dim 128, 2
+10. train: the sparse transformer (seq_len 2048, vocab 64, head_dim 128, 2
    heads, 1 layer, window 128, stride 64, SddmmConfig(k=128, delta=0.05))
    through the hand kernels: logits and every parameter's gradient against
    the same net built on the plain versions (backend="torch"), three Adam
@@ -66,9 +77,9 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    tile layout; one Adam step at GRAPH_SMALL_LR that must lower the loss
    from the same weights (put back after it); then train steps at the
    default lr with a finite loss and their profile split;
-10. batched: make_batched_sddmm_fn at Z=4 on the community_20k plan, K=128,
+11. batched: make_batched_sddmm_fn at Z=4 on the community_20k plan, K=128,
    against four single calls of the body;
-11. sharded: the parallel layer's sharded SDDMM over a 4-shard mesh (4
+12. sharded: the parallel layer's sharded SDDMM over a 4-shard mesh (4
    cards where 4 are visible, else 4 shards on cuda:0, run one after
    another) at K=128: banded_mesh_32k at its R4_BEST arm (alpha 0.3, delta
    0.002, subpack 12) with emit="csr" (B replicated, then b-sharded) and
@@ -79,22 +90,22 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    single-device port's output, with its launches (each tile kernel once
    per shard), all-gathers (0, or 1 b-sharded) and ms per call by CUDA
    events beside the single-device body's;
-12. ring: make_ring_sddmm(emit="csr") on both matrices over 4 shards:
+13. ring: make_ring_sddmm(emit="csr") on both matrices over 4 shards:
    check_data, agreement with its plain build and the single-device
    output, bsr_dense 16 launches a call (dense_tile 16 where the plan
    has gathered tiles), 3 hops per shard, no all-gather, ms per call;
-13. weak: parallel.distributed.sddmm_weak_scaling([1, 2, 4]) at its
+14. weak: parallel.distributed.sddmm_weak_scaling([1, 2, 4]) at its
    defaults: shapes, output slots per shard, no collective, ms per call
    (with the shards on one card: serial work, not a scaling figure);
-14. multihost: two worker processes (python -m
+15. multihost: two worker processes (python -m
    bsmr_sddmm_tpu_torch.parallel.worker) with 2 shards each on cuda:0 over
    gloo (host-staged), banded_mesh_32k at K=128: the b-sharded all-gather
    and the ring's hops cross the process boundary; both check pass, one
    plan hash; over nccl with a card per process where 2 cards are visible
    (else printed as not run);
-15. train-sharded: both model families' Adam step over a 4-shard mesh
+16. train-sharded: both model families' Adam step over a 4-shard mesh
    (models.*.make_forward(..., mesh=)) at full width: the graph
-   transformer of phase 9 on community_20k (at the worker's TRAIN_LR,
+   transformer of phase 10 on community_20k (at the worker's TRAIN_LR,
    1e-5) and its sparse transformer. Logits and every gradient against
    the same step built on the plain versions (backend="torch") and
    against the single-device kernel step; bsr_dense and subpack launched
@@ -103,8 +114,8 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    single-device step's in the same phase, and one step's torch.profiler
    split; then two parallel.worker --train processes on cuda:0 over gloo
    with one parameter hash, whose losses equal the one-process steps';
-16. bench: bench.suite.run on banded_mesh_32k and community_20k at K 64,
-   128 and 256 with bench.py's R4_BEST arms (6 cells and an fp16 sibling,
+17. bench: bench.suite.run on banded_mesh_32k and community_20k at K 128
+   and 256 with bench.py's R4_BEST arms (4 cells and an fp16 sibling,
    each validated), bsr_dense's launches and route at each K, the per-K
    geomean; then bench.runner.run_suite on community_20k saved as .mtx
    (the CLI and the gather_dot baseline, each in a process of its own on
@@ -596,7 +607,7 @@ AUTO_LOG = "BSMR_k_128_a_auto_d_auto.log"
 
 
 def run_cli(bt, csr) -> list:
-    """Phase 8: the console entry point on a suite matrix in a .mtx."""
+    """Phase 9: the console entry point on a suite matrix in a .mtx."""
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "community_20k.mtx")
@@ -881,8 +892,203 @@ def calibrate_phase(torch, bt, dev, suite, smi, results, picks):
     return failures
 
 
+#: [arms]: the full grid (ALPHAS x CONFIGS) of bench.suite at K=128 on these
+ARMS = ("banded_mesh_32k", "community_20k")
+#: the refine probe's cell and the tier profile's matrix
+ARMS_REFINE, ARMS_PROFILE = "community_20k", "banded_mesh_32k"
+
+
+def sweep_arms(bt, dev, suite):
+    """bench.suite.run(full_grid=True) at K=128 on ARMS: (its echoed lines,
+    the result line, each arm that ran as (matrix, alpha, delta, subpack,
+    out dtype, RunLog)), recorded from BsmrSddmm.benchmark itself."""
+    from bsmr_sddmm_tpu_torch.bench import suite as bench_suite
+    from bsmr_sddmm_tpu_torch.sddmm import BsmrSddmm
+    lines, ran = [], []
+    benchmark = BsmrSddmm.benchmark
+
+    def recorded(self, A, B, **kw):
+        log = benchmark(self, A, B, **kw)
+        ran.append((log.file, kw.get("alpha"), kw.get("delta"),
+                    self.config.subpack_min_nnz, self.config.out_dtype, log))
+        return log
+
+    def echo(msg):
+        lines.append(msg)
+        say(f"[arms] {msg}")
+
+    BsmrSddmm.benchmark = recorded
+    try:
+        out = bench_suite.run([(n, lambda n=n: suite[n]) for n in ARMS],
+                              ks=(128,), device=dev, full_grid=True,
+                              echo=echo)
+    finally:
+        BsmrSddmm.benchmark = benchmark
+    return lines, out, ran
+
+
+def arms_phase(torch, bt, dev, suite, smi, results):
+    """Phase 7: the arm-selection tools (bsmr_sddmm_tpu_torch.tools) on the
+    card over the suite's own sweep: the full grid of ARMS at K=128, every
+    arm timed and each matrix's first arm validated; check_autotune's parse
+    of the echoed lines held to the arms that ran and the V5E_COSTS host
+    pick as a fraction of the sweep best; audit_cost_model on those arms;
+    fit_costs_from_audit on the subpack-0 rows, written to the card's cost
+    cache, read back by current_costs() and the pick checked again under
+    it; probe_refine_pick on ARMS_REFINE; profile_tiers on ARMS_PROFILE.
+    Leaves V5E_COSTS in effect and no cache file after it."""
+    from bsmr_sddmm_tpu_torch import autotune
+    from bsmr_sddmm_tpu_torch.bench import suite as bench_suite
+    from bsmr_sddmm_tpu_torch.tools import audit_cost_model as audit_tool
+    from bsmr_sddmm_tpu_torch.tools import check_autotune as check_tool
+    from bsmr_sddmm_tpu_torch.tools import fit_costs_from_audit as fit_tool
+    from bsmr_sddmm_tpu_torch.tools import probe_refine_pick, profile_tiers
+    if autotune.current_costs() is not autotune.V5E_COSTS:
+        return ["arms: the cost table in effect is not V5E_COSTS"]
+    failures = []
+    gens = [(n, lambda n=n: suite[n]) for n in ARMS]
+    zero_launches()
+    t0 = time.perf_counter()
+    lines, out, ran = sweep_arms(bt, dev, suite)
+    fp32 = [r for r in ran if r[4] == "float32"]
+    say(f"[arms] sweep: {len(fp32)} fp32 arms and "
+        f"{len(ran) - len(fp32)} fp16 in {time.perf_counter() - t0:.1f} s")
+    failures += [f"arms: sweep {key} {out[key]}"
+                 for key in ("failed_cells", "budget_skipped") if key in out]
+    want = len(ARMS) * len(bench_suite.ALPHAS) * len(bench_suite.CONFIGS)
+    if len(fp32) != want:
+        failures.append(f"arms: {len(fp32)} fp32 arms timed, {want} wanted")
+    for name in ARMS:
+        first = next((r[5] for r in fp32 if r[0] == name), None)
+        if first is None or first.check_result != "pass":
+            failures.append(f"arms: {name}'s first arm check "
+                            f"{first and first.check_result}")
+
+    # 2. check_autotune: the parse must name exactly the arms that ran
+    runs = check_tool.parse_lines(lines)
+    truth = {}
+    for name, alpha, delta, sub, _, log in fp32:
+        truth.setdefault((name, 128), {})[(alpha, delta, sub)] = float(
+            f"{log.gflops:.0f}")
+    if {k: dict(v) for k, v in runs.items()} != truth:
+        failures.append(f"arms: parse_log {dict(runs)} differs from the "
+                        f"arms that ran {truth}")
+    say(f"[arms] parse_log: {sum(map(len, runs.values()))} arms, each "
+        f"(alpha, delta, subpack) the one that ran: "
+        f"{'yes' if dict(runs) == truth else 'NO'}")
+
+    def picks(tag, costs):
+        t = time.perf_counter()
+        got = check_tool.check(runs, gens, ks=(128,), auto_alpha=True,
+                               costs=costs,
+                               echo=lambda m: say(f"[arms] {tag}: {m}"))
+        # a pick the grid lacks (e.g. delta 0.006 at subpack 12) has no
+        # measured GFLOPS and so no fraction: check() leaves it None
+        say(f"[arms] {tag} host pick over the sweep best: mean "
+            f"{got['mean_fraction']}, min {got['min_fraction']} (None: "
+            f"the pick is outside the swept grid; "
+            f"{time.perf_counter() - t:.1f} s)")
+        if len(got["rows"]) != len(ARMS):
+            failures.append(f"arms: {tag} check rows {got['rows']}")
+        return got
+
+    v5e = picks("V5E_COSTS", autotune.V5E_COSTS)
+
+    # 3. audit_cost_model on the arms just timed, a table per subpack
+    plans = {}
+
+    def plan_for(r):
+        key = (r["file"], r["sub"])
+        if key not in plans:
+            plans[key] = bt.BsmrSddmm(suite[r["file"]], bt.SddmmConfig(
+                k=128, panel_height=32, subpack_min_nnz=r["sub"],
+                reorder_cache=True))
+        # the SUITE has no manifest regime: each matrix stands for its own
+        return plans[key].plan(r["alpha"], r["delta"], k=128), r["file"]
+
+    audits = {}
+    for sub in sorted({r[3] for r in fp32}):
+        recs = [dict(file=n, k=128, alpha=a, delta=d, ms=log.sddmm_ms,
+                     sub=s) for n, a, d, s, _, log in fp32 if s == sub]
+        audits[sub] = audit_tool.audit(recs, plan_for, autotune.V5E_COSTS,
+                                       echo=lambda _: None)
+        for name, per_k in audits[sub]["per_regime_k"].items():
+            g = per_k["128"]
+            say(f"[arms] audit subpack {sub} {name} K=128: measured / "
+                f"V5E_COSTS estimate geomean {g['geomean']} (n {g['n']}, "
+                f"min {g['min']}, max {g['max']})")
+        if audits[sub]["cells"] != len(recs):
+            failures.append(f"arms: audit subpack {sub} priced "
+                            f"{audits[sub]['cells']} of {len(recs)} arms")
+
+    # 4. fit_costs_from_audit on the subpack-0 rows, into the card's cache
+    got = fit_tool.fit(audits[0]["rows"])
+    table = got["table"]
+    say(f"[arms] refit on {len(audits[0]['rows'])} subpack-0 rows ({smi}; "
+        f"one K, so each base and its K slope are not told apart): quality "
+        f"(geomean |log ratio|) V5E_COSTS {got['quality']['defaults']}, "
+        f"refit {got['quality']['refit']}")
+    v5e_units = dict(autotune.V5E_COSTS)
+    for key, val in table.items():
+        say(f"[arms]   {key:20s} V5E_COSTS {v5e_units[key]:12.4f} refit "
+            f"{val:12.4f}")
+    bad = [k for k, v in table.items() if not math.isfinite(v)]
+    if bad:
+        failures.append(f"arms: refit constants not finite: {bad}")
+    kind = torch.cuda.get_device_name()
+    path = fit_tool.write_cache(table, kind)
+    try:
+        autotune._CALIBRATED = None
+        with open(path) as f:
+            merged = autotune._merge_costs(json.load(f))
+        cur = autotune.current_costs()
+        ok = cur == merged and all(cur[k] == v for k, v in table.items()
+                                   if k != "fixed_us")
+        say(f"[arms] wrote {os.path.basename(path)}; current_costs() reads "
+            f"the merged refit: {'yes' if ok else 'NO'}")
+        if not ok:
+            failures.append("arms: current_costs() did not read the "
+                            "written refit")
+        refit = picks("refit", None)
+    finally:
+        os.remove(path)
+        autotune._CALIBRATED = None
+    if autotune.current_costs() is not autotune.V5E_COSTS:
+        failures.append("arms: V5E_COSTS not back in effect")
+
+    # 5. probe_refine_pick: host and refined picks on one cell
+    t = time.perf_counter()
+    row = probe_refine_pick.probe_cell(
+        ARMS_REFINE, suite[ARMS_REFINE], 128, dev,
+        echo=lambda m: say(f"[arms] refine probe {m}"))
+    say(f"[arms] refine probe {ARMS_REFINE} K=128 ({smi}): sweep best "
+        f"{row['sweep_best']}; host pick {row['host_pick']}; refined pick "
+        f"{row['refined_pick']} ([arm, ms, fraction of best]; "
+        f"{time.perf_counter() - t:.1f} s)")
+    for key in ("host_pick", "refined_pick"):
+        if not 0 < row[key][2] <= 1.0:
+            failures.append(f"arms: refine probe {key} {row[key]}")
+
+    # 6. profile_tiers on one matrix
+    prof = profile_tiers.profile([ARMS_PROFILE], 128, dev,
+                                 echo=lambda m: say(f"[arms] tiers {m}"))
+    if len(prof) != 1 or not prof[0]["tier_ms"]["dense"] > 0:
+        failures.append(f"arms: profile_tiers {prof}")
+
+    launches = read_launches(results)
+    say(f"[arms] pick fractions of the sweep best (K=128, {smi}): V5E_COSTS "
+        f"host {[r['fraction'] for r in v5e['rows']]}, refit host "
+        f"{[r['fraction'] for r in refit['rows']]} ({ARMS}); "
+        f"{ARMS_REFINE} probe host {row['host_pick'][2]}, refined "
+        f"{row['refined_pick'][2]}; launches {launches}")
+    for kname in ("bsr_dense", "subpack"):
+        if launches[kname] <= 0:
+            failures.append(f"arms: {kname} never launched")
+    return failures
+
+
 def dense_phase(bt, dev, results):
-    """Phase 7: the dense fallback against the best-priced tiled plan on a
+    """Phase 8: the dense fallback against the best-priced tiled plan on a
     uniform mask, and the cost model's choice there and on a blocky mask,
     both priced with V5E_COSTS."""
     from bsmr_sddmm_tpu_torch import autotune, datasets
@@ -1073,7 +1279,7 @@ def head_against_csr(torch, head_fn, dplan, csr, k, dev):
 
 
 def train_phase(torch, bt, dev, csr, results, smi):
-    """Phase 9: both model families trained through the hand kernels (the
+    """Phase 10: both model families trained through the hand kernels (the
     graph transformer on ``csr``, community_20k)."""
     import numpy as np
     from bsmr_sddmm_tpu_torch.models import graph_transformer as gt
@@ -1241,7 +1447,7 @@ BATCH_Z = 4
 
 
 def batched_phase(torch, bt, dev, csr, results):
-    """Phase 10: make_batched_sddmm_fn at Z=BATCH_Z on the community_20k
+    """Phase 11: make_batched_sddmm_fn at Z=BATCH_Z on the community_20k
     plan at K=128 against BATCH_Z single calls of the body."""
     import numpy as np
     from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan,
@@ -1282,15 +1488,17 @@ def batched_phase(torch, bt, dev, csr, results):
     return failures
 
 
-BENCH_KS = (64, 128, 256)
+# K=64 left out since [arms] runs its full grid: every route is covered
+# (resident at K=128, streaming at K=256) and the script stays near 10 min
+BENCH_KS = (128, 256)
 BENCH_SCHEMA = ("metric", "value", "unit", "vs_baseline", "per_k_geomean",
                 "per_k_vs_baseline", "per_k_geomean_fp32out",
                 "matrices_per_k")
 
 
 def bench_phase(torch, bt, dev, suite, results):
-    """Phase 15: bench.suite.run on banded_mesh_32k and community_20k at
-    K in BENCH_KS with their R4_BEST arms (6 cells and community_20k's fp16
+    """Phase 17: bench.suite.run on banded_mesh_32k and community_20k at
+    K in BENCH_KS with their R4_BEST arms (4 cells and community_20k's fp16
     sibling at K=128), every arm validated, the launches of each K's cells
     counted; then a bench.runner -> bench.analyze round trip through
     subprocesses on the card."""
@@ -1331,8 +1539,10 @@ def bench_phase(torch, bt, dev, suite, results):
                  if key not in out]
     if out.get("matrices_per_k") != {str(k): 2 for k in BENCH_KS}:
         failures.append(f"bench: matrices_per_k {out.get('matrices_per_k')}")
-    if checks != ["pass"] * 7:
-        failures.append(f"bench: 7 validated arms expected, checks {checks}")
+    want = 2 * len(BENCH_KS) + 1
+    if checks != ["pass"] * want:
+        failures.append(f"bench: {want} validated arms expected, checks "
+                        f"{checks}")
     say(f"[bench] per-K geomean GFLOPS {out.get('per_k_geomean')}, fp32 "
         f"out {out.get('per_k_geomean_fp32out')}, vs the RTX 4090 baseline "
         f"{out.get('per_k_vs_baseline')}")
@@ -1482,7 +1692,7 @@ def hold(torch, label, vals, plain, ref, failures):
 
 
 def sharded_phase(torch, bt, dev, suite, results, picks, refs):
-    """Phase 11: make_sharded_sddmm over a PAR_N-shard mesh at K=128 on
+    """Phase 12: make_sharded_sddmm over a PAR_N-shard mesh at K=128 on
     banded_mesh_32k (emit="csr" with B replicated and b-sharded,
     emit="rphm" reassembled through sharded_rphm_to_csr, and the
     single-device body's emit="csr_scatter") and community_20k (emit="csr"
@@ -1563,7 +1773,7 @@ def sharded_phase(torch, bt, dev, suite, results, picks, refs):
 
 
 def ring_phase(torch, bt, dev, suite, results, refs):
-    """Phase 12: make_ring_sddmm(emit="csr") on banded_mesh_32k and
+    """Phase 13: make_ring_sddmm(emit="csr") on banded_mesh_32k and
     community_20k at K=128 over PAR_N shards: check_data, agreement with
     its plain build and the single-device output, bsr_dense PAR_N^2
     launches a call (and dense_tile where the plan has gathered tiles),
@@ -1606,7 +1816,7 @@ def ring_phase(torch, bt, dev, suite, results, refs):
 
 
 def weak_phase(torch, results):
-    """Phase 13: sddmm_weak_scaling([1, 2, 4]) at its defaults (8192 rows
+    """Phase 14: sddmm_weak_scaling([1, 2, 4]) at its defaults (8192 rows
     and 500 000 nnz a shard, 8192 columns, K=128, band 256, ph 32): the
     shards of a count share one shape, each shard's output slots stay
     within 2x of one shard's, the replicated-B rphm path runs no
@@ -1685,7 +1895,7 @@ def run_workers(backend, devices, args=("--matrix", "banded_mesh_32k")):
 
 
 def multihost_phase(torch):
-    """Phase 14: two worker processes, each owning 2 shards of one 4-shard
+    """Phase 15: two worker processes, each owning 2 shards of one 4-shard
     mesh, on banded_mesh_32k at K=128: on gloo with both on cuda:0 (CUDA
     tensors staged through host memory), and on nccl with a card each
     where 2 cards are visible. Both lines must read check and ring_check
@@ -1739,7 +1949,7 @@ def time_steps(step, opt, *args):
 
 
 def train_sharded_phase(torch, dev, results, smi):
-    """Phase 15: both model families' Adam step over a PAR_N-shard mesh
+    """Phase 16: both model families' Adam step over a PAR_N-shard mesh
     (``make_forward(..., mesh=)``) at full width: the graph transformer of
     [train] on community_20k (its inputs ``parallel.worker.
     train_problem``'s) and the sparse transformer of SEQ_MODEL. Logits and
@@ -1969,6 +2179,8 @@ def main() -> int:
                       picks)
     failures += timed("calibrate", calibrate_phase, torch, bt, dev, suite,
                       smi, results, picks)
+    failures += timed("arms", arms_phase, torch, bt, dev, suite, smi,
+                      results)
     failures += timed("dense", dense_phase, bt, dev, results)
     failures += timed("cli", run_cli, bt, suite["community_20k"])
     failures += timed("train", train_phase, torch, bt, dev,

@@ -233,7 +233,7 @@ def test_calibrate_recovers_affine_costs(monkeypatch, tmp_path):
         return units * (BASE_NS + SLOPE_NS * A.shape[1]) / 1e6
 
     monkeypatch.setattr(tat, "_time_tier", timer)
-    costs = tat.calibrate()
+    costs = tat.calibrate(device="cpu")
     assert len(groups) == 8 and groups[0] == groups[1] and groups[0] >= 1
     for prefix in ("packed", "gathered", "pernnz"):
         assert costs[f"{prefix}_base_ns"] == pytest.approx(BASE_NS)
