@@ -19,6 +19,8 @@ this package never imports ``jax``.
 Layer map:
 
     CLI / driver       bsmr_sddmm_tpu_torch.cli
+    entry points       bsmr_sddmm_tpu_torch.graft_entry (entry() and
+                       dryrun_multichip(n) of __graft_entry__.py)
     orchestration      bsmr_sddmm_tpu_torch.sddmm (BsmrSddmm pipeline)
     parallel layer     bsmr_sddmm_tpu_torch.parallel (shards over a mesh
                        of devices, the B-panel ring, collectives,

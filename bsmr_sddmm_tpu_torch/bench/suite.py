@@ -34,9 +34,16 @@ checked between cells, and the cells it skips are listed. ``BENCH_MATRICES``
 
 Operands are made by ``make_dense(..., seed=1337/1338)`` and uploaded once
 per (matrix, K), B as (N, K). ``sddmm_ms`` is ``BsmrSddmm.benchmark``'s
-replayed CUDA graph of one call. ``tune_malloc()`` runs first; the JAX
-package's ``enable_compile_cache()`` has no counterpart here (the nvcc
-build cache under ``build/torch_kernels/`` is one).
+replayed CUDA graph of one call. ``tune_malloc()`` runs first, then
+``utils.compilecache.enable_compile_cache()`` (the nvcc build cache under
+``build/torch_kernels/``, where the JAX package's is XLA's).
+
+``--arms FILE`` writes every tiled arm that ran to a JSON sidecar, one
+record each: ``{"matrix", "k", "alpha", "delta", "subpack", "dtype",
+"gflops", "ms", "check"}`` (``run(records=...)`` collects them). The
+echoed lines name no subpack, so ``tools.check_autotune`` reads the arms
+from these records (``--arms``) where a skipped arm would shift its
+positional parse; the result line is unchanged.
 
 Two differences from ``bench.py``, so that no failure on the card is
 hidden:
@@ -76,6 +83,7 @@ from bsmr_sddmm_tpu_torch.formats import CSR, make_dense
 from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, resolve_device
 from bsmr_sddmm_tpu_torch.pack import TilePlan, pack_tiles
 from bsmr_sddmm_tpu_torch.sddmm import BsmrSddmm
+from bsmr_sddmm_tpu_torch.utils.compilecache import enable_compile_cache
 from bsmr_sddmm_tpu_torch.utils.hostmem import rss_gb, tune_malloc
 from bsmr_sddmm_tpu_torch.utils.profiling import phase_timer
 
@@ -156,11 +164,16 @@ def _stderr(msg: str) -> None:
 def run(suite: Sequence[Tuple[str, Callable[[], CSR]]],
         ks: Sequence[int] = KS, budget_s: float = 1500.0, device=None,
         full_grid: bool = False, extra_arms: bool = False,
-        echo: Optional[Callable[[str], None]] = None) -> dict:
+        echo: Optional[Callable[[str], None]] = None,
+        records: Optional[List[dict]] = None) -> dict:
     """Sweep ``suite`` ((name, generator) pairs named as in ``R4_BEST``)
     at ``ks`` on ``device`` (default: the card) and return the result
     line's dict. ``echo`` takes the per-arm and phase-total lines (default:
-    stderr)."""
+    stderr). ``records``, where given, gets one dict per tiled arm that
+    ran and printed its line: ``matrix, k, alpha, delta, subpack, dtype``
+    (``"float32"`` or ``"float16"``), ``gflops``, ``ms`` (``sddmm_ms``)
+    and ``check`` (``"pass"``, ``"fail"``, or the unvalidated arm's
+    value)."""
     if 128 not in ks:
         raise ValueError("ks must hold K=128, the headline")
     device = resolve_device(device)
@@ -248,6 +261,12 @@ def run(suite: Sequence[Tuple[str, Callable[[], CSR]]],
                  f"{log.packed_nnz} G={log.extras['fat_group']} eager "
                  f"{float(log.extras['sddmm_eager_ms']):.3f} ms check "
                  f"{log.check_result}")
+            if records is not None:
+                records.append(dict(
+                    matrix=name, k=K, alpha=alpha, delta=delta, subpack=sub,
+                    dtype="float16" if f16 else "float32",
+                    gflops=float(log.gflops), ms=float(log.sddmm_ms),
+                    check=log.check_result))
             if validate:
                 if log.check_result != "pass":
                     failed_cells.append(cell)
@@ -385,8 +404,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="where the bodies run (default: the card; cpu "
                         "runs the kernels' plain versions)")
+    p.add_argument("--arms", default=None, metavar="FILE",
+                   help="write each tiled arm that ran (matrix, k, alpha, "
+                        "delta, subpack, dtype, gflops, ms, check) to FILE "
+                        "as JSON, for tools.check_autotune --arms")
     args = p.parse_args(argv)
     tune_malloc()   # packing is allocation-bound on a small host
+    enable_compile_cache()   # reuse the kernel build across runs
     only = os.environ.get("BENCH_MATRICES")   # comma-separated subset
     suite = [(n, g) for n, g in datasets.SUITE
              if only is None or n in only.split(",")]
@@ -394,11 +418,17 @@ def main(argv=None) -> int:
         print(f"BENCH_MATRICES={only!r} matched nothing; suite names: "
               f"{[n for n, _ in datasets.SUITE]}", file=sys.stderr)
         return 1
+    records: List[dict] = []
     out = run(suite, budget_s=float(os.environ.get("BENCH_BUDGET_S",
                                                    "1500")),
               device=args.device,
               full_grid=bool(os.environ.get("BENCH_FULL_GRID")),
-              extra_arms=bool(os.environ.get("BENCH_EXTRA_ARMS")))
+              extra_arms=bool(os.environ.get("BENCH_EXTRA_ARMS")),
+              records=records)
+    if args.arms:
+        os.makedirs(os.path.dirname(args.arms) or ".", exist_ok=True)
+        with open(args.arms, "w") as f:
+            json.dump(records, f, indent=1)
     if not out["matrices_per_k"]["128"]:
         print("no cells measured", file=sys.stderr)
         return 1

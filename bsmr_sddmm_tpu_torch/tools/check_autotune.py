@@ -3,6 +3,8 @@
     python -m bsmr_sddmm_tpu_torch.tools.check_autotune SWEEP_LOG \
         [--ks 32 128] [--alpha 0.3] [--auto-alpha] [--costs v5e|current] \
         [--out FILE] [--device cpu]
+    python -m bsmr_sddmm_tpu_torch.tools.check_autotune --arms ARMS_JSON \
+        [--time-outside-grid] [...]
 
 For each suite matrix and K, the cost model's pick (``choose_delta`` at
 ``--alpha`` over the sweep's (delta, subpack) grid, or with ``--auto-alpha``
@@ -16,11 +18,22 @@ position within a (matrix, alpha, K) group, in ``BENCH_CONFIGS`` order, as
 the JAX script does; fp16 lines (`` dt=f16`` between ``k=`` and ``:``) do
 not match. A sweep line printed in place of an arm (``skipped (plan maps
 ...)``), or an arm that failed twice and printed no line, shifts the
-positions after it, and the rule then misreads the group: ``chip_smoke.py``
-holds the parse to the arms that ran.
+positions after it, and the rule then misreads the group. Two port-only
+additions repair what the JAX script gets wrong, and leave ``parse_lines``,
+``parse_log`` and ``check`` at their defaults equal to it:
 
-Host-only: packing and pricing, no device work. The price table is
-``V5E_COSTS`` (``--costs current``: ``autotune.current_costs()``).
+* ``runs_from_records`` (``--arms FILE``) builds the same dict from the
+  records ``bench.suite`` writes with ``--arms`` (``run(records=...)``),
+  which name each arm's subpack: every arm is attributed right;
+* ``check(..., time_outside_grid=device)`` (``--time-outside-grid``) times
+  a pick the sweep lacks (``delta 0.006`` at subpack 12, say) on the device
+  with ``BsmrSddmm.benchmark``, as ``probe_refine_pick.probe_cell`` does,
+  where the JAX script leaves its fraction None; such a row says
+  ``"timed_outside_grid": true``.
+
+Host-only without ``time_outside_grid``: packing and pricing, no device
+work. The price table is ``V5E_COSTS`` (``--costs current``:
+``autotune.current_costs()``).
 """
 
 from __future__ import annotations
@@ -67,6 +80,43 @@ def parse_log(path: str) -> dict:
         return parse_lines(f)
 
 
+def runs_from_records(records) -> dict:
+    """``parse_lines``' dict from ``bench.suite``'s arm records: {(name,
+    k): {(alpha, delta, sub): gflops}} over the fp32 arms, each under the
+    subpack it ran with. An arm whose check failed is left out: a wrong
+    result is no candidate for the best."""
+    runs = collections.defaultdict(dict)
+    for r in records:
+        if r["dtype"] == "float32" and r["check"] != "fail":
+            runs[(r["matrix"], int(r["k"]))][
+                (float(r["alpha"]), float(r["delta"]),
+                 int(r["subpack"]))] = float(r["gflops"])
+    return runs
+
+
+def time_arm(csr, name: str, k: int, arm, device) -> float:
+    """GFLOPS of one (alpha, delta, subpack) arm on ``device``, timed by
+    ``BsmrSddmm.benchmark`` on ``bench.suite``'s config and operands."""
+    import numpy as np
+    import torch
+
+    from bsmr_sddmm_tpu_torch.config import SddmmConfig
+    from bsmr_sddmm_tpu_torch.formats import make_dense
+    from bsmr_sddmm_tpu_torch.sddmm import BsmrSddmm
+
+    alpha, delta, sub = arm
+    device = resolve_device(device)
+    pipe = BsmrSddmm(csr, SddmmConfig(
+        k=128, panel_height=32, num_iterations=10, reorder_cache=True,
+        subpack_min_nnz=sub), device=device)
+    A = torch.from_numpy(make_dense(csr.rows, k, seed=1337)).to(device)
+    Bt = torch.from_numpy(np.ascontiguousarray(
+        make_dense(k, csr.cols, seed=1338).T)).to(device)
+    log = pipe.benchmark(A, Bt, alpha=alpha, delta=delta,
+                         time_csr_emit=False, file=name)
+    return float(log.gflops)
+
+
 @contextlib.contextmanager
 def priced_with(costs: Optional[dict]):
     """Make ``costs`` the table ``autotune.current_costs()`` returns for
@@ -83,11 +133,15 @@ def priced_with(costs: Optional[dict]):
 def check(runs: dict, suite: Sequence, ks: Sequence[int] = (32, 128),
           alpha: float = 0.3, auto_alpha: bool = False,
           costs: Optional[dict] = None,
-          echo: Callable[[str], None] = print) -> dict:
+          echo: Callable[[str], None] = print,
+          time_outside_grid=None) -> dict:
     """The picks against the sweep best for every (name, K) of ``runs``
     whose matrix is in ``suite`` ((name, generator) pairs): ``{
     "mean_fraction", "min_fraction", "rows"}``. ``costs`` prices the picks
-    (default: the table in effect)."""
+    (default: the table in effect). ``time_outside_grid``, a device, times
+    each pick the sweep lacks there (``time_arm``) and marks its row
+    ``"timed_outside_grid": true``; None (the default, the JAX script's
+    behaviour) leaves that row's fraction None."""
     from bsmr_sddmm_tpu_torch.config import SddmmConfig
     from bsmr_sddmm_tpu_torch.sddmm import BsmrSddmm
 
@@ -133,6 +187,10 @@ def check(runs: dict, suite: Sequence, ks: Sequence[int] = (32, 128),
                               12 if choice.plan.num_packed else 0)
                 best_cfg = max(cands, key=cands.get)
                 got = cands.get(picked)
+                timed = got is None and time_outside_grid is not None
+                if timed:
+                    arm = picked if auto_alpha else (alpha,) + picked
+                    got = time_arm(csr, name, k, arm, time_outside_grid)
                 rows.append({"matrix": name, "k": k,
                              "picked": list(picked),
                              "picked_gflops": got,
@@ -140,6 +198,8 @@ def check(runs: dict, suite: Sequence, ks: Sequence[int] = (32, 128),
                              "best_gflops": cands[best_cfg],
                              "fraction": (round(got / cands[best_cfg], 3)
                                           if got else None)})
+                if timed:
+                    rows[-1]["timed_outside_grid"] = True
                 echo(f"{name} k={k}: picked {picked} "
                      f"-> {got} GFLOPS; sweep best {best_cfg} "
                      f"-> {cands[best_cfg]} "
@@ -153,7 +213,14 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description="the cost model's pick against a bench.suite "
                     "full-grid sweep's measured best")
-    p.add_argument("log", help="bench.suite stderr log with sweep lines")
+    p.add_argument("log", nargs="?", default=None,
+                   help="bench.suite stderr log with sweep lines")
+    p.add_argument("--arms", default=None, metavar="FILE",
+                   help="bench.suite --arms records, read in place of the "
+                        "log (each arm under the subpack it ran with)")
+    p.add_argument("--time-outside-grid", action="store_true",
+                   help="time a pick the sweep lacks on the device, so "
+                        "that its row gets a fraction")
     p.add_argument("--ks", type=int, nargs="*", default=[32, 128])
     p.add_argument("--alpha", type=float, default=0.3)
     p.add_argument("--auto-alpha", action="store_true",
@@ -164,15 +231,24 @@ def main(argv=None) -> int:
     add_costs_arg(p)
     add_device_arg(p)
     args = p.parse_args(argv)
-    resolve_device(args.device)
+    device = resolve_device(args.device)
+    if (args.log is None) == (args.arms is None):
+        p.error("give one of a sweep log and --arms FILE")
     from bsmr_sddmm_tpu_torch.datasets import SUITE
     from bsmr_sddmm_tpu_torch.utils.hostmem import tune_malloc
     tune_malloc()   # packing is allocation-bound on a small host
 
-    summary = check(parse_log(args.log), SUITE, ks=args.ks,
+    if args.arms:
+        with open(args.arms) as f:
+            runs = runs_from_records(json.load(f))
+    else:
+        runs = parse_log(args.log)
+    summary = check(runs, SUITE, ks=args.ks,
                     alpha=args.alpha, auto_alpha=args.auto_alpha,
                     costs=costs_of(args),
-                    echo=lambda m: print(m, flush=True))
+                    echo=lambda m: print(m, flush=True),
+                    time_outside_grid=(device if args.time_outside_grid
+                                       else None))
     print(json.dumps({k: summary[k] for k in
                       ("mean_fraction", "min_fraction")}))
     if args.out:

@@ -111,6 +111,8 @@ def main(argv=None) -> int:
     from bsmr_sddmm_tpu_torch.datasets import SUITE
     from bsmr_sddmm_tpu_torch.utils.hostmem import tune_malloc
     tune_malloc()
+    from bsmr_sddmm_tpu_torch.utils.compilecache import enable_compile_cache
+    enable_compile_cache()   # reuse the kernel build across runs
 
     gens = dict(SUITE)
     out = []

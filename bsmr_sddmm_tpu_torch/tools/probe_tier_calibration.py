@@ -186,6 +186,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     from bsmr_sddmm_tpu_torch.utils.hostmem import tune_malloc
     tune_malloc()   # packing is allocation-bound on a small host
+    from bsmr_sddmm_tpu_torch.utils.compilecache import enable_compile_cache
+    enable_compile_cache()   # reuse the kernel build across runs
 
     with open(args.audit) as f:
         audit = json.load(f)

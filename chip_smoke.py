@@ -6,7 +6,9 @@
 Run from the root of a checkout, on a machine with one CUDA card. Phases:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: nvcc compiles csrc/*.cu for sm_90a (into build/torch_kernels/);
+2. build: nvcc compiles csrc/*.cu for sm_90a (into build/torch_kernels/,
+   set by utils.compilecache.enable_compile_cache; a later run of the same
+   sources in the same checkout loads that library, and says so);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of plans packed from the SUITE matrix banded_mesh_32k at
    K=128 and K=32 (fp32 and fp16 output), with max errors; the kernel's
@@ -45,10 +47,13 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
 7. arms: the arm-selection tools (bsmr_sddmm_tpu_torch.tools) on
    bench.suite.run(full_grid=True) at K=128 on banded_mesh_32k and
    community_20k (24 fp32 arms and an fp16 sibling each, the first arm of
-   each matrix validated): check_autotune's parse of the echoed lines held
-   to the arms that ran and the V5E_COSTS host pick as a fraction of the
-   sweep best; audit_cost_model's measured / estimated geomean per matrix
-   and subpack; fit_costs_from_audit on the subpack-0 rows, its table
+   each matrix validated): check_autotune on the arms that bench.suite
+   recorded (run(records=...)), the positional parse of the echoed lines
+   held to them, and the V5E_COSTS host pick as a fraction of the sweep
+   best, a pick outside the swept grid timed on the card
+   (time_outside_grid), so that every row has one; audit_cost_model's
+   measured / estimated geomean per matrix and subpack;
+   fit_costs_from_audit on the subpack-0 rows, its table
    beside V5E_COSTS and its quality, written to the card's cost cache,
    read back by current_costs() and the pick checked again under it;
    probe_refine_pick's host and refined picks on community_20k;
@@ -114,7 +119,18 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    single-device step's in the same phase, and one step's torch.profiler
    split; then two parallel.worker --train processes on cuda:0 over gloo
    with one parameter hash, whose losses equal the one-process steps';
-17. bench: bench.suite.run on banded_mesh_32k and community_20k at K 128
+17. graft: the graft entry points (bsmr_sddmm_tpu_torch.graft_entry,
+   the port of __graft_entry__.py): entry()'s forward (the graph
+   transformer on the tiny packed mask), dryrun_multichip(8) on its tiny
+   problem with the 8 shards on the visible cards (all on cuda:0 on a
+   one-card machine), and dryrun_multichip(4) at full width on
+   community_20k at [train-sharded]'s arm (head_dim 128). Each against the
+   same path built on the plain versions at TOL (logits; the loss and
+   every SDDMM output, each held to the fp64 oracle inside the dry run),
+   with the launches of bsr_dense and subpack (and, in the dry runs'
+   ring, dense_tile), ms a call and wall time beside the card's name and
+   power limit;
+18. bench: bench.suite.run on banded_mesh_32k and community_20k at K 128
    and 256 with bench.py's R4_BEST arms (4 cells and an fp16 sibling,
    each validated), bsr_dense's launches and route at each K, the per-K
    geomean; then bench.runner.run_suite on community_20k saved as .mtx
@@ -898,41 +914,30 @@ ARMS = ("banded_mesh_32k", "community_20k")
 ARMS_REFINE, ARMS_PROFILE = "community_20k", "banded_mesh_32k"
 
 
-def sweep_arms(bt, dev, suite):
+def sweep_arms(dev, suite):
     """bench.suite.run(full_grid=True) at K=128 on ARMS: (its echoed lines,
-    the result line, each arm that ran as (matrix, alpha, delta, subpack,
-    out dtype, RunLog)), recorded from BsmrSddmm.benchmark itself."""
+    the result line, the suite's record of each arm that ran: matrix, k,
+    alpha, delta, subpack, dtype, gflops, ms, check)."""
     from bsmr_sddmm_tpu_torch.bench import suite as bench_suite
-    from bsmr_sddmm_tpu_torch.sddmm import BsmrSddmm
-    lines, ran = [], []
-    benchmark = BsmrSddmm.benchmark
-
-    def recorded(self, A, B, **kw):
-        log = benchmark(self, A, B, **kw)
-        ran.append((log.file, kw.get("alpha"), kw.get("delta"),
-                    self.config.subpack_min_nnz, self.config.out_dtype, log))
-        return log
+    lines, records = [], []
 
     def echo(msg):
         lines.append(msg)
         say(f"[arms] {msg}")
 
-    BsmrSddmm.benchmark = recorded
-    try:
-        out = bench_suite.run([(n, lambda n=n: suite[n]) for n in ARMS],
-                              ks=(128,), device=dev, full_grid=True,
-                              echo=echo)
-    finally:
-        BsmrSddmm.benchmark = benchmark
-    return lines, out, ran
+    out = bench_suite.run([(n, lambda n=n: suite[n]) for n in ARMS],
+                          ks=(128,), device=dev, full_grid=True, echo=echo,
+                          records=records)
+    return lines, out, records
 
 
 def arms_phase(torch, bt, dev, suite, smi, results):
     """Phase 7: the arm-selection tools (bsmr_sddmm_tpu_torch.tools) on the
     card over the suite's own sweep: the full grid of ARMS at K=128, every
-    arm timed and each matrix's first arm validated; check_autotune's parse
-    of the echoed lines held to the arms that ran and the V5E_COSTS host
-    pick as a fraction of the sweep best; audit_cost_model on those arms;
+    arm timed and each matrix's first arm validated; check_autotune on the
+    suite's arm records (the positional parse of the echoed lines held to
+    them) and the V5E_COSTS host pick as a fraction of the sweep best, a
+    pick the sweep lacks timed on the card; audit_cost_model on those arms;
     fit_costs_from_audit on the subpack-0 rows, written to the card's cost
     cache, read back by current_costs() and the pick checked again under
     it; probe_refine_pick on ARMS_REFINE; profile_tiers on ARMS_PROFILE.
@@ -949,47 +954,56 @@ def arms_phase(torch, bt, dev, suite, smi, results):
     gens = [(n, lambda n=n: suite[n]) for n in ARMS]
     zero_launches()
     t0 = time.perf_counter()
-    lines, out, ran = sweep_arms(bt, dev, suite)
-    fp32 = [r for r in ran if r[4] == "float32"]
+    lines, out, records = sweep_arms(dev, suite)
+    fp32 = [r for r in records if r["dtype"] == "float32"]
     say(f"[arms] sweep: {len(fp32)} fp32 arms and "
-        f"{len(ran) - len(fp32)} fp16 in {time.perf_counter() - t0:.1f} s")
+        f"{len(records) - len(fp32)} fp16 in {time.perf_counter() - t0:.1f} "
+        f"s")
     failures += [f"arms: sweep {key} {out[key]}"
                  for key in ("failed_cells", "budget_skipped") if key in out]
     want = len(ARMS) * len(bench_suite.ALPHAS) * len(bench_suite.CONFIGS)
     if len(fp32) != want:
         failures.append(f"arms: {len(fp32)} fp32 arms timed, {want} wanted")
     for name in ARMS:
-        first = next((r[5] for r in fp32 if r[0] == name), None)
-        if first is None or first.check_result != "pass":
+        first = next((r for r in fp32 if r["matrix"] == name), None)
+        if first is None or first["check"] != "pass":
             failures.append(f"arms: {name}'s first arm check "
-                            f"{first and first.check_result}")
+                            f"{first and first['check']}")
 
-    # 2. check_autotune: the parse must name exactly the arms that ran
-    runs = check_tool.parse_lines(lines)
-    truth = {}
-    for name, alpha, delta, sub, _, log in fp32:
-        truth.setdefault((name, 128), {})[(alpha, delta, sub)] = float(
-            f"{log.gflops:.0f}")
-    if {k: dict(v) for k, v in runs.items()} != truth:
-        failures.append(f"arms: parse_log {dict(runs)} differs from the "
-                        f"arms that ran {truth}")
-    say(f"[arms] parse_log: {sum(map(len, runs.values()))} arms, each "
-        f"(alpha, delta, subpack) the one that ran: "
-        f"{'yes' if dict(runs) == truth else 'NO'}")
+    # 2. check_autotune on the suite's records; the positional parse of the
+    # echoed lines must agree with them unless an arm was skipped or failed
+    runs = check_tool.runs_from_records(records)
+    parsed = {key: dict(grid)
+              for key, grid in check_tool.parse_lines(lines).items()}
+    rounded = {key: {arm: float(f"{g:.0f}") for arm, g in grid.items()}
+               for key, grid in runs.items()}
+    shifted = [ln for ln in lines if "skipped (plan maps" in ln
+               or "FAILED twice" in ln]
+    if parsed != rounded and not shifted:
+        failures.append(f"arms: parse_log {parsed} differs from the arm "
+                        f"records {rounded} with no arm skipped or failed")
+    say(f"[arms] check_autotune reads {sum(map(len, runs.values()))} arms "
+        f"from the suite's records; the positional parse of the echoed "
+        f"lines agrees with them: {'yes' if parsed == rounded else 'no'} "
+        f"({len(shifted)} arms skipped or failed)")
 
     def picks(tag, costs):
         t = time.perf_counter()
         got = check_tool.check(runs, gens, ks=(128,), auto_alpha=True,
-                               costs=costs,
+                               costs=costs, time_outside_grid=dev,
                                echo=lambda m: say(f"[arms] {tag}: {m}"))
-        # a pick the grid lacks (e.g. delta 0.006 at subpack 12) has no
-        # measured GFLOPS and so no fraction: check() leaves it None
+        # a pick the grid lacks (e.g. delta 0.006 at subpack 12) is timed
+        # on the card, so that every row has a fraction
+        outside = [r["picked"] for r in got["rows"]
+                   if r.get("timed_outside_grid")]
         say(f"[arms] {tag} host pick over the sweep best: mean "
-            f"{got['mean_fraction']}, min {got['min_fraction']} (None: "
-            f"the pick is outside the swept grid; "
+            f"{got['mean_fraction']}, min {got['min_fraction']} (picks "
+            f"outside the swept grid, timed on the card: {outside}; "
             f"{time.perf_counter() - t:.1f} s)")
         if len(got["rows"]) != len(ARMS):
             failures.append(f"arms: {tag} check rows {got['rows']}")
+        failures.extend(f"arms: {tag} row without a fraction {r}"
+                        for r in got["rows"] if r["fraction"] is None)
         return got
 
     v5e = picks("V5E_COSTS", autotune.V5E_COSTS)
@@ -1007,9 +1021,10 @@ def arms_phase(torch, bt, dev, suite, smi, results):
         return plans[key].plan(r["alpha"], r["delta"], k=128), r["file"]
 
     audits = {}
-    for sub in sorted({r[3] for r in fp32}):
-        recs = [dict(file=n, k=128, alpha=a, delta=d, ms=log.sddmm_ms,
-                     sub=s) for n, a, d, s, _, log in fp32 if s == sub]
+    for sub in sorted({r["subpack"] for r in fp32}):
+        recs = [dict(file=r["matrix"], k=128, alpha=r["alpha"],
+                     delta=r["delta"], ms=r["ms"], sub=sub)
+                for r in fp32 if r["subpack"] == sub]
         audits[sub] = audit_tool.audit(recs, plan_for, autotune.V5E_COSTS,
                                        echo=lambda _: None)
         for name, per_k in audits[sub]["per_regime_k"].items():
@@ -2095,6 +2110,109 @@ def train_sharded_phase(torch, dev, results, smi):
     return failures
 
 
+#: [graft]: bsmr_sddmm_tpu_torch.graft_entry, the port of
+#: __graft_entry__.py: entry()'s forward, dryrun_multichip(GRAFT_TINY_N) on
+#: its tiny problem with the shards on the visible cards (all on cuda:0 on
+#: a one-card machine), and dryrun_multichip(PAR_N) at full width on
+#: community_20k at [train-sharded]'s arm (GRAPH_CFG: bench.py's R4_BEST
+#: alpha 0.1, delta 0.002, subpack 12, ph 32), so head_dim 128
+GRAFT_TINY_N = 8
+#: the kernels a dry run must launch: bsr_dense and subpack in the shard
+#: bodies and heads, bsr_dense and dense_tile in the ring; entry()'s
+#: single-device bsr forward has no ring and runs the first two
+GRAFT_KERNELS = ("bsr_dense", "subpack", "dense_tile")
+
+
+def graft_phase(torch, dev, suite, results, smi):
+    """Phase 17: the graft entry points on the card. entry()'s forward
+    and each dry run (dryrun_multichip(GRAFT_TINY_N) on the tiny problem,
+    dryrun_multichip(PAR_N) at full width) against the same path built on
+    the plain versions (problem=(csr, cfg with backend="torch")) at TOL:
+    the logits, the loss and every SDDMM output (each of which the dry run
+    holds to the fp64 oracle by check_data, and raises where one fails);
+    the launches of the GRAFT_KERNELS each runs, the ms of its one call
+    per part, its wall time."""
+    from bsmr_sddmm_tpu_torch import graft_entry
+    from bsmr_sddmm_tpu_torch.config import SddmmConfig
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda
+    failures = []
+    tiny = graft_entry._tiny_problem()
+
+    def plain(problem):
+        csr, cfg = problem
+        return csr, cfg.replace(backend="torch")
+
+    # 1. entry(): the forward through the hand kernels, and on the plain
+    # versions
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    zero_launches()
+    with torch.no_grad():
+        logits = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_launches(results)
+    pfn, pargs = graft_entry.entry(problem=plain(tiny))
+    with torch.no_grad():
+        err, _, ok = compare(torch, logits, pfn(*pargs), "float32")
+        ms, _ = time_cuda(lambda: fn(*args))
+    shape = (tiny[0].rows, graft_entry.NUM_CLASSES)
+    say(f"[graft] entry(): logits {tuple(logits.shape)} (want {shape}) vs "
+        f"the plain build max_abs {err:.3e} ({'ok' if ok else 'MISMATCH'} "
+        f"at {TOL['float32']}); {ms:.4f} ms a forward (CUDA events, 10 "
+        f"calls after a warm-up); launches {launches}; wall "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    if not ok or tuple(logits.shape) != shape:
+        failures.append(f"graft entry(): logits {tuple(logits.shape)} off "
+                        f"the plain build by {err:.3e}")
+    failures += [f"graft entry(): {k} never launched"
+                 for k in GRAFT_KERNELS[:2] if launches[k] <= 0]
+
+    # 2-3. the dry runs, each against its plain build
+    full = (suite["community_20k"], SddmmConfig(**GRAPH_CFG))
+    for label, n, problem in (("tiny", GRAFT_TINY_N, None),
+                              ("community_20k K=128", PAR_N, full)):
+        run = f"graft dryrun_multichip({n}) {label}"
+        t0 = time.perf_counter()
+        try:
+            zero_launches()
+            got = graft_entry.dryrun_multichip(n, problem=problem)
+            launches = read_launches(results)
+            want = graft_entry.dryrun_multichip(n, problem=plain(
+                problem or tiny))
+        except Exception as e:   # a failed check raises in the dry run
+            failures.append(f"{run}: {type(e).__name__}: {e}")
+            continue
+        tol = TOL["float32"]
+        loss_ok = (math.isfinite(got["loss"]) and abs(
+            got["loss"] - want["loss"]) <= tol["atol"] + tol["rtol"] * abs(
+                want["loss"]))
+        errs = {}
+        for key, vals in got["outputs"].items():
+            err, _, ok = compare(torch, torch.from_numpy(vals),
+                                 torch.from_numpy(want["outputs"][key]),
+                                 "float32")
+            errs[key] = err
+            if not ok:
+                failures.append(f"{run}: {key} off the plain build by "
+                                f"{err:.3e}")
+        say(f"[graft] dryrun_multichip({n}) {label} on "
+            f"{sorted(set(got['devices']))}: loss {got['loss']:.6f} vs the "
+            f"plain build's {want['loss']:.6f} "
+            f"({'ok' if loss_ok else 'MISMATCH'}); check_data error rates "
+            f"{got['error_rates']}; outputs vs the plain build max_abs "
+            f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } at "
+            f"{tol}; ms (one call each, host wall, cards synchronised) "
+            f"{ {k: round(v, 3) for k, v in got['ms'].items()} }; launches "
+            f"{launches}; wall {time.perf_counter() - t0:.1f} s (both "
+            f"builds); {smi}")
+        if not loss_ok:
+            failures.append(f"{run}: loss {got['loss']} vs the plain "
+                            f"build's {want['loss']}")
+        failures += [f"{run}: {k} never launched" for k in GRAFT_KERNELS
+                     if launches[k] <= 0]
+    return failures
+
+
 def timed(phase, fn, *args) -> list:
     """Run one phase, print its wall time, return its failures."""
     t0 = time.perf_counter()
@@ -2112,6 +2230,7 @@ def main() -> int:
     bt = import_port()
     from bsmr_sddmm_tpu_torch import datasets
     from bsmr_sddmm_tpu_torch.ops import _build
+    from bsmr_sddmm_tpu_torch.utils.compilecache import enable_compile_cache
     # the plain versions are the reference: full fp32 matmuls, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2122,11 +2241,17 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     say(f"[device] nvidia-smi: {smi}")
 
+    # the kernel build cache under build/torch_kernels/ of this checkout: a
+    # second run of the same sources loads the library the first built
+    cache_dir = enable_compile_cache()
     t0 = time.perf_counter()
     _build.load_library()
     info = _build.build_info
+    how = ("built now" if info["compiled"]
+           else "reused the library an earlier run built")
     say(f"[build] {info['path']}: compiled={info['compiled']} nvcc "
-        f"{info['seconds']:.1f} s (load {time.perf_counter() - t0:.1f} s)")
+        f"{info['seconds']:.1f} s (load {time.perf_counter() - t0:.1f} s; "
+        f"kernel build cache {cache_dir}: {how})")
     report = info.get("report", "")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
@@ -2197,6 +2322,7 @@ def main() -> int:
     failures += timed("multihost", multihost_phase, torch)
     failures += timed("train-sharded", train_sharded_phase, torch, dev,
                       results, smi)
+    failures += timed("graft", graft_phase, torch, dev, suite, results, smi)
     failures += timed("bench", bench_phase, torch, bt, dev, suite, results)
     if failures:
         fail(f"{failures}")

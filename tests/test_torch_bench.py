@@ -64,6 +64,8 @@ def tiny_suites(monkeypatch, tmp_path):
     monkeypatch.setattr(tds, "SUITE", _tiny(tds))
     monkeypatch.setattr(jcompilecache, "enable_compile_cache",
                         lambda *a, **k: None)
+    # the port's enable_compile_cache() sets it; put back after the test
+    monkeypatch.setenv("BSMR_TORCH_KERNEL_DIR", str(tmp_path / "kernels"))
 
 
 @pytest.mark.parametrize("table", ("KS", "ALPHAS", "CONFIGS", "N_TRANSFER",

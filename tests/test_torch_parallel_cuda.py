@@ -1,8 +1,9 @@
 """The parallel layer on a CUDA device: the sharded SDDMM (B replicated and
 b-sharded, the fused gathered tier), the ring, ``emit="csr_scatter"`` and
 both model families' train step over the mesh through the hand kernels,
-against the same built on the plain versions (``backend="torch"``), on a
-mesh of four shards on the first card.
+and the graft entry points (``graft_entry``), against the same built on
+the plain versions (``backend="torch"``), on a mesh of four shards on the
+first card (eight for ``dryrun_multichip(8)``).
 
 Every test here needs the card (marker ``cuda``) and imports nothing of JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_parallel_cuda.py``.
@@ -224,3 +225,29 @@ def test_sharded_train_step_kernels_match_plain(cuda, kind):
     opt = opt_init()
     losses = [float(step(opt, *batch, dplan)) for _ in range(3)]
     assert all(np.isfinite(losses)) and losses[2] < losses[0]
+
+
+@pytest.mark.cuda
+def test_graft_entry_points_match_plain(cuda):
+    """graft_entry.entry()'s forward and dryrun_multichip(8) on the tiny
+    problem, the shards on the visible cards (cycled), through the hand
+    kernels against the same built on the plain versions; the dry run holds
+    every SDDMM output to the oracle itself."""
+    from bsmr_sddmm_tpu_torch import graft_entry
+    csr, cfg = graft_entry._tiny_problem()
+    plain = (csr, cfg.replace(backend="torch"))
+    before = launches()
+    fn, args = graft_entry.entry()
+    pfn, pargs = graft_entry.entry(problem=plain)
+    with torch.no_grad():
+        torch.testing.assert_close(fn(*args), pfn(*pargs), **TOL)
+    got = graft_entry.dryrun_multichip(8)
+    want = graft_entry.dryrun_multichip(8, problem=plain)
+    launched = since(before)
+    assert launched["bsr_dense"] and launched["subpack"]
+    assert launched["dense_tile"]
+    assert got["devices"][0] == "cuda:0" and len(got["devices"]) == 8
+    np.testing.assert_allclose(got["loss"], want["loss"], **TOL)
+    for key, vals in got["outputs"].items():
+        np.testing.assert_allclose(vals, want["outputs"][key], **TOL,
+                                   err_msg=key)

@@ -69,9 +69,11 @@ def _close(a, b, tol=1e-12):
 
 
 @pytest.fixture(autouse=True)
-def _no_jax_compile_cache(monkeypatch):
+def _no_jax_compile_cache(monkeypatch, tmp_path):
     monkeypatch.setattr(jcompilecache, "enable_compile_cache",
                         lambda *a, **k: None)
+    # the port's enable_compile_cache() sets it; put back after the test
+    monkeypatch.setenv("BSMR_TORCH_KERNEL_DIR", str(tmp_path / "kernels"))
 
 
 # ---------------------------------------------------------------------------
@@ -106,18 +108,21 @@ def test_parse_log_equal_on_jax_test_log(tmp_path):
 @pytest.fixture(scope="module")
 def sweep_log(tmp_path_factory):
     """The lines bench.suite.run(full_grid=True) echoes for
-    banded_mesh_12k at K=128 on the CPU, in a log file, and the reorder
-    cache they left."""
+    banded_mesh_12k at K=128 on the CPU, in a log file, the arm records
+    of the same run beside it (``arms.json``, as ``--arms`` writes them),
+    and the reorder cache they left."""
     root = tmp_path_factory.mktemp("sweep")
-    lines = []
+    lines, records = [], []
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("BSMR_CACHE_DIR", str(root / "cache"))
         gen = dict(tds.SUITE)["banded_mesh_12k"]
         out = suite.run([("banded_mesh_12k", gen)], ks=(128,),
-                        device="cpu", full_grid=True, echo=lines.append)
+                        device="cpu", full_grid=True, echo=lines.append,
+                        records=records)
     assert "failed_cells" not in out
     path = root / "sweep.log"
     path.write_text("\n".join(lines) + "\n")
+    (root / "arms.json").write_text(json.dumps(records))
     return path
 
 
@@ -150,6 +155,122 @@ def test_check_rows_equal_jax_main(sweep_log, tmp_path, monkeypatch,
     assert check_autotune.main([str(sweep_log), "--ks", "128", "--out",
                                 str(mine), "--device", "cpu"] + flag) == 0
     assert json.loads(mine.read_text()) == want
+
+
+def _rounded(runs):
+    """Records' GFLOPS as the echoed line prints them."""
+    return {key: {arm: float(f"{g:.0f}") for arm, g in grid.items()}
+            for key, grid in runs.items()}
+
+
+def test_records_agree_with_the_parse_of_a_clean_sweep(sweep_log, tmp_path,
+                                                       monkeypatch):
+    """Where no arm is skipped the positional parse is right: the records
+    name the same 12 fp32 arms with the same GFLOPS, and one fp16 arm;
+    main --arms picks what main on the log picks, and its best is the
+    records' (the log's GFLOPS are rounded to integers, so on the CPU's
+    few GFLOPS its best may be a tie's first arm)."""
+    monkeypatch.setenv("BSMR_CACHE_DIR", str(sweep_log.parent / "cache"))
+    arms = sweep_log.parent / "arms.json"
+    records = json.loads(arms.read_text())
+    assert [r["dtype"] for r in records].count("float16") == 1
+    runs = check_autotune.runs_from_records(records)
+    assert _rounded(runs) == dict(check_autotune.parse_log(str(sweep_log)))
+    assert records[0]["check"] == "pass"
+    rows = []
+    for src in (["--arms", str(arms)], [str(sweep_log)]):
+        out = tmp_path / "rows.json"
+        assert check_autotune.main(src + ["--ks", "128", "--out", str(out),
+                                          "--device", "cpu"]) == 0
+        rows.append(json.loads(out.read_text())["rows"])
+    assert len(rows[0]) == len(rows[1]) == 1
+    assert rows[0][0]["picked"] == rows[1][0]["picked"]
+    grid = runs[("banded_mesh_12k", 128)]
+    assert rows[0][0]["best_gflops"] == max(grid.values())
+    assert tuple(rows[0][0]["best"]) == max(grid, key=grid.get)[1:]
+
+
+def test_records_attribute_a_skipped_group_right(monkeypatch, tmp_path):
+    """Fault 1: an arm that prints ``skipped (plan maps ...)`` shifts the
+    positional parse of the rest of its (matrix, alpha, K) group, which then
+    files the subpack-12 arm at delta 0.002 under subpack 0 (as the JAX
+    script does); the records attribute every arm that ran right."""
+    monkeypatch.setenv("BSMR_CACHE_DIR", str(tmp_path))
+    calls = []
+    plan_bytes = suite.plan_bytes
+
+    def first_arm_too_big(plan):
+        calls.append(plan)
+        return suite.MAX_PLAN_BYTES + 1 if len(calls) == 1 else \
+            plan_bytes(plan)
+    monkeypatch.setattr(suite, "plan_bytes", first_arm_too_big)
+    lines, records = [], []
+    out = suite.run([("tiny", lambda: tds.community(1024, 12000, 8,
+                                                     seed=47))],
+                    ks=(128,), device="cpu", full_grid=True,
+                    echo=lines.append, records=records)
+    assert "failed_cells" not in out
+    assert sum("skipped (plan maps" in ln for ln in lines) == 1
+    runs = check_autotune.runs_from_records(records)[("tiny", 128)]
+    first = (suite.ALPHAS[0],) + suite.CONFIGS[0]
+    assert sorted(runs) == sorted(
+        (a, d, s) for a in suite.ALPHAS for d, s in suite.CONFIGS
+        if (a, d, s) != first)
+    log = tmp_path / "sweep.log"
+    log.write_text("\n".join(lines) + "\n")
+    parsed = check_autotune.parse_log(str(log))[("tiny", 128)]
+    assert parsed == _script("check_autotune").parse_log(str(log))[
+        ("tiny", 128)]
+    # the parse reads the subpack-12 arm at delta 0.002 as subpack 0
+    misread = (suite.ALPHAS[0], 0.002, 12)
+    assert parsed[first] == float(f"{runs[misread]:.0f}")
+    assert misread not in parsed
+    assert _rounded({0: runs})[0] != parsed
+
+
+@pytest.mark.parametrize("auto_alpha", (False, True))
+def test_check_times_a_pick_outside_the_grid(sweep_log, monkeypatch,
+                                             tmp_path, auto_alpha):
+    """Fault 2: on a sweep that lacks the picked arm, check() leaves the
+    row's fraction None, as the JAX script does; with time_outside_grid (in
+    main: --time-outside-grid) it times the pick on the device and the row
+    gets a fraction. With alpha chosen the picked arm is taken out; at the
+    fixed alpha 0.3 the candidate deltas come from that alpha's arms, so
+    the subpack-0 arms there are taken out (the pick moves to delta 0.002,
+    where the plan packs nothing: subpack 0)."""
+    monkeypatch.setenv("BSMR_CACHE_DIR", str(sweep_log.parent / "cache"))
+    records = json.loads((sweep_log.parent / "arms.json").read_text())
+    kw = dict(ks=(128,), auto_alpha=auto_alpha, costs=tat.V5E_COSTS,
+              echo=lambda _: None)
+    if auto_alpha:
+        pick = check_autotune.check(check_autotune.runs_from_records(
+            records), tds.SUITE, **kw)["rows"][0]["picked"]
+        drop = [r for r in records
+                if [r["alpha"], r["delta"], r["subpack"]] == pick]
+    else:
+        drop = [r for r in records if r["alpha"] == 0.3
+                and r["subpack"] == 0]
+    records = [r for r in records if r not in drop]
+    runs = check_autotune.runs_from_records(records)
+    got = check_autotune.check(runs, tds.SUITE, **kw)
+    picked = got["rows"][0]["picked"]
+    assert got["rows"][0]["fraction"] is None
+    assert "timed_outside_grid" not in got["rows"][0]
+    got = check_autotune.check(runs, tds.SUITE, time_outside_grid="cpu",
+                               **kw)
+    row = got["rows"][0]
+    assert row["picked"] == picked and row["timed_outside_grid"]
+    assert row["picked_gflops"] > 0 and row["fraction"] > 0
+    assert got["min_fraction"] == row["fraction"]
+    arms, out = tmp_path / "arms.json", tmp_path / "rows.json"
+    arms.write_text(json.dumps(records))
+    assert check_autotune.main(
+        ["--arms", str(arms), "--ks", "128", "--out", str(out),
+         "--time-outside-grid", "--device", "cpu"]
+        + (["--auto-alpha"] if auto_alpha else [])) == 0
+    (row,) = json.loads(out.read_text())["rows"]
+    assert row["picked"] == picked and row["timed_outside_grid"]
+    assert row["fraction"] > 0
 
 
 # ---------------------------------------------------------------------------
