@@ -9,10 +9,23 @@ a runtime dataclass field.
 
 ``tier_memory_mb`` is read as the JAX body reads it: the residual and the
 unfused gathered tier run in row chunks (``dense_chunk`` / ``residual_chunk``
-buckets) above it. Fields that only steer XLA in the JAX package are kept
-for parity and are not read by this package: ``tier_serialize`` and
-``matmul_precision`` (every tier here, and every SpMM of ``ops.graph_rphm``,
-accumulates in full fp32).
+buckets) above it. On the card:
+
+- ``matmul_precision`` sets every tier's numerics (``ops.sddmm.PRECISION``):
+  ``"default"`` runs the hand kernels in one TF32 pass, the CUDA original's
+  arithmetic, and lets the torch tiers' matmuls take TF32; ``"bf16x3"``,
+  ``"high"`` and ``"highest"`` run the kernels' three-TF32-pass split (about
+  fp32) and pin the torch tiers to fp32, whatever the process set in
+  ``torch.backends.cuda.matmul.allow_tf32``. The ring reads it too; the
+  graph ops take a ``precision`` argument of the same values.
+- ``tier_serialize`` chooses between the original's two overlapping CUDA
+  streams (the gathered tier and the residual on a side stream beside the
+  dense and packed tiers) and one stream, tier after tier: "on" / True
+  serializes, "off" / False overlaps every call, "auto" serializes where
+  the JAX body would (``ops.sddmm._serialize_tiers``) and elsewhere
+  overlaps the calls captured into a CUDA graph, while an eager call,
+  bound by the host's enqueue, keeps one stream (``ops.sddmm._forks``).
+  The values are the same either way.
 """
 
 from __future__ import annotations
@@ -44,9 +57,9 @@ class SddmmConfig:
     encoding_block: int = 32
 
     # --- numerics ---------------------------------------------------------
-    # Accepted for parity with the JAX package, which splits fp32 operands
-    # into bf16 passes; this package computes every tier in fp32 and does
-    # not read it.
+    # The JAX package splits fp32 operands into bf16 passes; this package's
+    # kernels take three TF32 passes ("default": one, as the CUDA original
+    # does), see the module docstring.
     matmul_precision: str = "bf16x3"  # "default" | "bf16x3" | "highest"
     dtype: str = "float32"
     # Output value dtype. "float16" halves the output bytes of every tier
@@ -94,7 +107,10 @@ class SddmmConfig:
     # each tile's B rows by index inside the kernel; like the JAX package,
     # windowed plans (g_groups) keep the "xla" arm.
     gathered_backend: str = "xla"     # "xla" | "fused"
-    # Tier scheduling barrier of the JAX package's XLA program; not read.
+    # One stream, tier after tier ("on" / True), or the gathered tier and
+    # the residual on a side stream beside the dense and packed tiers
+    # ("off" / False); "auto" serializes where the JAX body's barrier chain
+    # would (module docstring).
     tier_serialize: object = "auto"   # "auto" | "on" | "off" | bool
     # Minimum nonzeros a gathered block_width-column chunk must cover to
     # become a tile (the reference's tuned crossover, kept so that plans

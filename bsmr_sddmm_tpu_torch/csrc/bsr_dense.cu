@@ -10,9 +10,10 @@
 // Pad tiles are computed and stored like real ones.
 //
 // What bounds it: at (PH, BW, K) = (32, 128, 128) a tile is 3 * 2^20 TF32
-// operations for 16 KB of output, and the operands are shared between tiles,
-// so bytes (the output store) and tensor-core operations bind within a few
-// percent of each other; at K = 32 the output store binds alone. The design
+// operations (in three passes; 2^20 in one) for 16 KB of output, and the
+// operands are shared between tiles, so at three passes bytes (the output
+// store) and tensor-core operations bind within a few percent of each other;
+// at one pass, and at K = 32, the output store binds alone. The design
 // keeps everything but the output store out of the way of the MMAs:
 //
 // * Resident route (G >= 2 and the block fits), on warpgroup MMAs
@@ -21,14 +22,15 @@
 //   the persistent thread blocks (as many as the card holds at once) walks
 //   one contiguous share of it. The step's column block (BW x K) is copied
 //   into shared memory when the block reaches a new step, split once into
-//   TF32 hi (in place) and lo (a second buffer), and reused for every unit
+//   TF32 hi (in place) and lo (a second buffer; at one pass rounded to hi
+//   alone, the second buffer left unused), and reused for every unit
 //   of that step: the tensor cores read it from shared memory without any
 //   conversion, and a column block is read from L2 two or three times per
 //   thread block, not once per tile. The A panels (PH x K, contiguous)
 //   stream through a ring of 2 or 3 stages (a unit each) filled by cp.async
 //   under the MMAs of the units before, across step boundaries too; each of
 //   the block's two warpgroups multiplies the unit's 64 rows, split into hi
-//   and lo in registers, by one half of the block's columns.
+//   and lo (or rounded) in registers, by one half of the block's columns.
 //   Shared memory: 2 * BW * K32 * 4 bytes (K32 = K rounded up to 32) plus
 //   stages * 64 * (K8 + 4) * 4 (K8 = K rounded up to 8): 195 KB at
 //   (32, 128, 128) with 2 stages, one block per SM; 60 KB at K = 32 with 3
@@ -70,7 +72,7 @@ inline long long resident_bytes(int bw, int K, int stages) {
                          resident_stride(K));
 }
 
-template <int PH, int BW, typename OutT>
+template <int PH, int BW, int PASSES, typename OutT>
 __global__ void __launch_bounds__(kBlockThreads)
     bsr_resident_kernel(const float* __restrict__ A_panels,
                         const float* __restrict__ Bt,
@@ -153,16 +155,22 @@ __global__ void __launch_bounds__(kBlockThreads)
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      // split the resident block once: hi in place, lo beside it
+      // split the resident block once: hi in place, lo beside it (at one
+      // pass hi alone)
       for (int o = 4 * threadIdx.x; o < BW * K32; o += 4 * kBlockThreads) {
         const float4 x = *reinterpret_cast<const float4*>(Bhi + o);
         uint4 h, l;
-        tf32_split(x.x, h.x, l.x);
-        tf32_split(x.y, h.y, l.y);
-        tf32_split(x.z, h.z, l.z);
-        tf32_split(x.w, h.w, l.w);
+        if constexpr (PASSES == 3) {
+          tf32_split(x.x, h.x, l.x);
+          tf32_split(x.y, h.y, l.y);
+          tf32_split(x.z, h.z, l.z);
+          tf32_split(x.w, h.w, l.w);
+          *reinterpret_cast<uint4*>(Blo + o) = l;
+        } else {
+          h = make_uint4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                         tf32_rna(x.w));
+        }
         *reinterpret_cast<uint4*>(Bhi + o) = h;
-        *reinterpret_cast<uint4*>(Blo + o) = l;
       }
       fence_proxy_async();
     } else if (stages == 3) {
@@ -175,9 +183,10 @@ __global__ void __launch_bounds__(kBlockThreads)
     __syncthreads();
 
     // 64 x NW sums of this warpgroup: per step of 8 along K three MMAs in
-    // one group (a_lo.b_hi, a_hi.b_lo, a_hi.b_hi: small terms first); the
-    // next step's A fragment is loaded and split while the group runs, into
-    // the registers that the group before last has finished reading.
+    // one group (a_lo.b_hi, a_hi.b_lo, a_hi.b_hi: small terms first), or
+    // a_hi.b_hi alone at one pass; the next step's A fragment is loaded and
+    // split while the group runs, into the registers that the group before
+    // last has finished reading.
     const float* ap = ring + ((u - lo) % stages) * kTiles * slot + a_off;
     const int ksteps = K8 / 8;
     float acc[1][NJ][4];
@@ -186,16 +195,22 @@ __global__ void __launch_bounds__(kBlockThreads)
       uint32_t x[4];
       ldmatrix_x4(x, ap + 8 * ks);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) tf32_split(__uint_as_float(x[e]), h[e], l[e]);
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (PASSES == 3)
+          tf32_split(__uint_as_float(x[e]), h[e], l[e]);
+        else
+          h[e] = tf32_rna(__uint_as_float(x[e]));
+      }
     };
     auto k_step = [&](const uint32_t(&h)[4], const uint32_t(&l)[4],
                       uint32_t(&h_next)[4], uint32_t(&l_next)[4], int ks) {
       const uint32_t at = bhi_addr + (ks >> 2) * (BW * 128) + (ks & 3) * 32;
       const uint64_t b_hi = swizzled_desc(at);
-      const uint64_t b_lo = swizzled_desc(at + half_bytes);
       wgmma_fence();
-      wgmma_tf32(acc[0], l, b_hi);
-      wgmma_tf32(acc[0], h, b_lo);
+      if constexpr (PASSES == 3) {
+        wgmma_tf32(acc[0], l, b_hi);
+        wgmma_tf32(acc[0], h, swizzled_desc(at + half_bytes));
+      }
       wgmma_tf32(acc[0], h, b_hi);
       wgmma_commit();
       wgmma_wait<1>();
@@ -222,7 +237,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-template <int PH, int BW, typename OutT>
+template <int PH, int BW, int PASSES, typename OutT>
 __global__ void __launch_bounds__(Tiling<PH, BW>::THREADS)
     bsr_stream_kernel(const float* __restrict__ A_panels,
                       const float* __restrict__ Bt,
@@ -238,11 +253,12 @@ __global__ void __launch_bounds__(Tiling<PH, BW>::THREADS)
     const long long n = base + c;
     return n < N ? Bt + n * K : nullptr;
   };
-  tile_mma_stream<PH, BW>(a, b_row, K, vec,
-                          out + static_cast<size_t>(t) * PH * BW, smem, Bt);
+  tile_mma_stream<PH, BW, PASSES>(a, b_row, K, vec,
+                                  out + static_cast<size_t>(t) * PH * BW,
+                                  smem, Bt);
 }
 
-template <int PH, int BW, typename OutT>
+template <int PH, int BW, int PASSES, typename OutT>
 int launch(const float* a, const float* b, const int* tp, const int* sc,
            void* out, int T, int G, int K, int N, bool vec,
            cudaStream_t s) {
@@ -255,7 +271,7 @@ int launch(const float* a, const float* b, const int* tp, const int* sc,
   cudaError_t err;
   int device = 0;
   if (G >= 2 && bytes <= kMaxSmem) {
-    auto kern = bsr_resident_kernel<PH, BW, OutT>;
+    auto kern = bsr_resident_kernel<PH, BW, PASSES, OutT>;
     static SmemLimit limit;
     err = limit.raise(kern, static_cast<int>(bytes), &device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -288,7 +304,7 @@ int launch(const float* a, const float* b, const int* tp, const int* sc,
     kern<<<grid, kBlockThreads, bytes, s>>>(a, b, tp, sc, o, T, G, K, N,
                                             stages, vec);
   } else {
-    auto kern = bsr_stream_kernel<PH, BW, OutT>;
+    auto kern = bsr_stream_kernel<PH, BW, PASSES, OutT>;
     const int smem = stream_smem_bytes<PH, BW>(K);
     static SmemLimit limit;
     err = limit.raise(kern, smem, &device);
@@ -300,11 +316,13 @@ int launch(const float* a, const float* b, const int* tp, const int* sc,
 
 }  // namespace
 
+// passes: 3 or 1 TF32 passes (tile_mma.cuh, numerics).
 extern "C" int bsmr_bsr_dense(const void* A_panels, const void* Bt,
                               const void* tile_panel, const void* step_cblock,
                               void* out, int T, int G, int ph, int bw, int K,
-                              int N, int out_f16, void* stream) {
-  if (T <= 0 || G <= 0 || K <= 0 || T % G != 0)
+                              int N, int out_f16, int passes, void* stream) {
+  if (T <= 0 || G <= 0 || K <= 0 || T % G != 0 ||
+      (passes != 1 && passes != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A_panels);
@@ -312,13 +330,18 @@ extern "C" int bsmr_bsr_dense(const void* A_panels, const void* Bt,
   const int* tp = static_cast<const int*>(tile_panel);
   const int* sc = static_cast<const int*>(step_cblock);
   const bool vec = vector_path(a, b, K);
+#define BSMR_LAUNCH_AT(PH, BW, P)                                            \
+  return out_f16 ? launch<PH, BW, P, __half>(a, b, tp, sc, out, T, G, K, N,  \
+                                             vec, s)                         \
+                 : launch<PH, BW, P, float>(a, b, tp, sc, out, T, G, K, N,   \
+                                            vec, s);
 #define BSMR_LAUNCH(PH, BW)                                                  \
-  if (ph == PH && bw == BW)                                                  \
-    return out_f16 ? launch<PH, BW, __half>(a, b, tp, sc, out, T, G, K, N,   \
-                                            vec, s)                          \
-                   : launch<PH, BW, float>(a, b, tp, sc, out, T, G, K, N,    \
-                                           vec, s);
+  if (ph == PH && bw == BW) {                                                \
+    if (passes == 1) BSMR_LAUNCH_AT(PH, BW, 1)                               \
+    BSMR_LAUNCH_AT(PH, BW, 3)                                                \
+  }
   BSMR_MMA_FOR_EACH_GEOMETRY(BSMR_LAUNCH)
 #undef BSMR_LAUNCH
+#undef BSMR_LAUNCH_AT
   return static_cast<int>(cudaErrorInvalidValue);
 }

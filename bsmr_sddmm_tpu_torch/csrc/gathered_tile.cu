@@ -19,9 +19,9 @@
 // in K-chunks of 32 through a 2-stage cp.async ring, each row 128 contiguous
 // bytes per chunk (16 bytes a thread, allocating in L1: neighbouring tiles
 // share rows), the next chunk in flight under the tensor-core MMAs (three
-// TF32 passes) of this one; 45 KB of shared memory at (32, 128), so four
-// blocks per SM overlap one tile's first loads and its 16-byte streaming
-// stores with the others' MMAs. Any K is taken: where K % 4 != 0 the same
+// TF32 passes, or one) of this one; 45 KB of shared memory at (32, 128), so
+// four blocks per SM overlap one tile's first loads and its 16-byte
+// streaming stores with the others' MMAs. Any K is taken: where K % 4 != 0 the same
 // pipeline copies 4 bytes a thread.
 //
 // Column ids need not be sorted or unique (pad tiles repeat one column). An
@@ -34,7 +34,7 @@ namespace {
 
 using namespace bsmr;
 
-template <int PH, int BW, typename OutT>
+template <int PH, int BW, int PASSES, typename OutT>
 __global__ void __launch_bounds__(Tiling<PH, BW>::THREADS)
     gathered_tile_kernel(const float* __restrict__ A_panels,
                          const float* __restrict__ Bt,
@@ -49,15 +49,15 @@ __global__ void __launch_bounds__(Tiling<PH, BW>::THREADS)
     const int n = tile_cols[c];
     return (n >= 0 && n < N) ? Bt + static_cast<size_t>(n) * K : nullptr;
   };
-  tile_mma_stream<PH, BW>(a, b_row, K, vec,
-                          out + static_cast<size_t>(t) * PH * BW, smem,
-                          A_panels);
+  tile_mma_stream<PH, BW, PASSES>(a, b_row, K, vec,
+                                  out + static_cast<size_t>(t) * PH * BW,
+                                  smem, A_panels);
 }
 
-template <int PH, int BW, typename OutT>
+template <int PH, int BW, int PASSES, typename OutT>
 int launch(const float* a, const float* b, const int* p, const int* c,
            void* out, int T, int K, int N, bool vec, cudaStream_t s) {
-  auto kern = gathered_tile_kernel<PH, BW, OutT>;
+  auto kern = gathered_tile_kernel<PH, BW, PASSES, OutT>;
   const int bytes = stream_smem_bytes<PH, BW>(K);
   static SmemLimit limit;
   int device = 0;
@@ -70,22 +70,31 @@ int launch(const float* a, const float* b, const int* p, const int* c,
 
 }  // namespace
 
+// passes: 3 or 1 TF32 passes (tile_mma.cuh, numerics).
 extern "C" int bsmr_gathered_tile(const void* A_panels, const void* Bt,
                                   const void* panel, const void* cols,
                                   void* out, int T, int ph, int bw, int K,
-                                  int N, int out_f16, void* stream) {
-  if (T <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                  int N, int out_f16, int passes,
+                                  void* stream) {
+  if (T <= 0 || K <= 0 || (passes != 1 && passes != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A_panels);
   const float* b = static_cast<const float*>(Bt);
   const int* p = static_cast<const int*>(panel);
   const int* c = static_cast<const int*>(cols);
   const bool vec = vector_path(a, b, K);
+#define BSMR_LAUNCH_AT(PH, BW, P)                                             \
+  return out_f16                                                              \
+             ? launch<PH, BW, P, __half>(a, b, p, c, out, T, K, N, vec, s)    \
+             : launch<PH, BW, P, float>(a, b, p, c, out, T, K, N, vec, s);
 #define BSMR_LAUNCH(PH, BW)                                                   \
-  if (ph == PH && bw == BW)                                                   \
-    return out_f16 ? launch<PH, BW, __half>(a, b, p, c, out, T, K, N, vec, s) \
-                   : launch<PH, BW, float>(a, b, p, c, out, T, K, N, vec, s);
+  if (ph == PH && bw == BW) {                                                 \
+    if (passes == 1) BSMR_LAUNCH_AT(PH, BW, 1)                                \
+    BSMR_LAUNCH_AT(PH, BW, 3)                                                 \
+  }
   BSMR_MMA_FOR_EACH_GEOMETRY(BSMR_LAUNCH)
 #undef BSMR_LAUNCH
+#undef BSMR_LAUNCH_AT
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,8 +18,8 @@
 // takes the place of the JAX wrapper's pad of Bt2) and from there it is a
 // gathered tile (tile_mma.cuh: tile_mma_stream): the A panel and the BW rows
 // stream in K-chunks of 32 through a 2-stage cp.async ring, 128 contiguous
-// bytes a row and chunk, under tensor-core MMAs in three TF32 passes, four
-// blocks to an SM, 16-byte streaming stores.
+// bytes a row and chunk, under tensor-core MMAs in three TF32 passes (or
+// one), four blocks to an SM, 16-byte streaming stores.
 //
 // What bounds it: bytes. At (PH, BW, K) = (32, 128, 128) a tile writes 16 KB
 // for 3 * 2^20 TF32 operations, and every referenced row of Bt and panel of
@@ -39,7 +39,7 @@ namespace {
 
 using namespace bsmr;
 
-template <int PH, int BW, typename OutT>
+template <int PH, int BW, int PASSES, typename OutT>
 __global__ void __launch_bounds__(Tiling<PH, BW>::THREADS)
     subpack_kernel(const float* __restrict__ A_panels,
                    const float* __restrict__ Bt,
@@ -58,16 +58,16 @@ __global__ void __launch_bounds__(Tiling<PH, BW>::THREADS)
     const int n = sp_colperm[h];
     return (n >= 0 && n < N) ? Bt + static_cast<size_t>(n) * K : nullptr;
   };
-  tile_mma_stream<PH, BW>(a, b_row, K, vec,
-                          out + static_cast<size_t>(t) * PH * BW, smem,
-                          A_panels);
+  tile_mma_stream<PH, BW, PASSES>(a, b_row, K, vec,
+                                  out + static_cast<size_t>(t) * PH * BW,
+                                  smem, A_panels);
 }
 
-template <int PH, int BW, typename OutT>
+template <int PH, int BW, int PASSES, typename OutT>
 int launch(const float* a, const float* b, const int* cp, const int* p,
            const int* sb, void* out, int Tp, int S, int sw, int K, int H,
            int N, bool vec, cudaStream_t s) {
-  auto kern = subpack_kernel<PH, BW, OutT>;
+  auto kern = subpack_kernel<PH, BW, PASSES, OutT>;
   const int bytes = stream_smem_bytes<PH, BW>(K);
   static SmemLimit limit;
   int device = 0;
@@ -80,12 +80,14 @@ int launch(const float* a, const float* b, const int* cp, const int* p,
 
 }  // namespace
 
+// passes: 3 or 1 TF32 passes (tile_mma.cuh, numerics).
 extern "C" int bsmr_subpack(const void* A_panels, const void* Bt,
                             const void* sp_colperm, const void* sp_panel,
                             const void* sp_sub, void* out, int Tp, int S,
                             int sw, int ph, int bw, int K, int H, int N,
-                            int out_f16, void* stream) {
-  if (Tp <= 0 || K <= 0 || S <= 0 || sw <= 0 || S * sw != bw)
+                            int out_f16, int passes, void* stream) {
+  if (Tp <= 0 || K <= 0 || S <= 0 || sw <= 0 || S * sw != bw ||
+      (passes != 1 && passes != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A_panels);
@@ -94,13 +96,18 @@ extern "C" int bsmr_subpack(const void* A_panels, const void* Bt,
   const int* p = static_cast<const int*>(sp_panel);
   const int* sb = static_cast<const int*>(sp_sub);
   const bool vec = vector_path(a, b, K);
+#define BSMR_LAUNCH_AT(PH, BW, P)                                            \
+  return out_f16 ? launch<PH, BW, P, __half>(a, b, cp, p, sb, out, Tp, S,    \
+                                             sw, K, H, N, vec, s)            \
+                 : launch<PH, BW, P, float>(a, b, cp, p, sb, out, Tp, S, sw, \
+                                            K, H, N, vec, s);
 #define BSMR_LAUNCH(PH, BW)                                                  \
-  if (ph == PH && bw == BW)                                                  \
-    return out_f16 ? launch<PH, BW, __half>(a, b, cp, p, sb, out, Tp, S, sw, \
-                                            K, H, N, vec, s)                 \
-                   : launch<PH, BW, float>(a, b, cp, p, sb, out, Tp, S, sw,  \
-                                           K, H, N, vec, s);
+  if (ph == PH && bw == BW) {                                                \
+    if (passes == 1) BSMR_LAUNCH_AT(PH, BW, 1)                               \
+    BSMR_LAUNCH_AT(PH, BW, 3)                                                \
+  }
   BSMR_MMA_FOR_EACH_GEOMETRY(BSMR_LAUNCH)
 #undef BSMR_LAUNCH
+#undef BSMR_LAUNCH_AT
   return static_cast<int>(cudaErrorInvalidValue);
 }

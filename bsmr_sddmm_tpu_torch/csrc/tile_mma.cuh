@@ -6,13 +6,17 @@
 //
 // computed by 4 or 8 warps with mma.sync.m16n8k8 (TF32 operands, fp32 sums).
 //
-// Numerics: three TF32 passes. Every operand value x is split
+// Numerics: PASSES TF32 passes, 3 or 1 (a template parameter of every
+// kernel, chosen at launch from SddmmConfig.matmul_precision). At 3 every
+// operand value x is split
 //   hi = cvt.rna.tf32(x),  lo = cvt.rna.tf32(x - hi)
 // and a product is  a_lo*b_hi + a_hi*b_lo + a_hi*b_hi  (small terms first).
 // Only the lo*lo term (~2^-22 relative per product) is dropped, so the result
 // keeps about fp32 accuracy; it is the card's form of the JAX package's own
-// three-pass split (ah@bh + ah@bl + al@bh, ops/pallas_dense.py). Raw fp32
-// bits never reach the MMA, which would truncate them.
+// three-pass split (ah@bh + ah@bl + al@bh, ops/pallas_dense.py). At 1 a
+// product is a_hi*b_hi alone, the CUDA original's own arithmetic (one
+// rounding to TF32, __float_to_tf32): a third of the MMAs, no lo split.
+// Either way raw fp32 bits never reach the MMA, which would truncate them.
 //
 // Shared-memory layout: both operands are K-major, as they are in device
 // memory: row r of a panel or of B^T holds its K values at [r * stride + k],
@@ -178,16 +182,18 @@ __device__ __forceinline__ void stage_rows(bool vec, int tid, float* smem,
 // The warp's share of a tile over `ksteps` steps of 8 along K.
 // As: the warp's first panel row, Bs: the warp's first B^T row, both at
 // k = 0 of the slab, rows `stride` floats apart. Both operands are read raw
-// and split into hi / lo here. Within a step the three passes run one
-// after the other over the accumulators of kGroupJ n8 tiles, so that two
-// MMAs on one accumulator are MI * kGroupJ MMAs apart and none waits for the
-// one before it. The order of loads and conversions against the MMAs is
-// left to the compiler over four unrolled steps (prefetching the next
-// step's fragments by hand was slower on an H100).
-template <int MI, int NJ>
+// and rounded to TF32 here (split into hi / lo at PASSES == 3). Within a
+// step the passes run one after the other over the accumulators of kGroupJ
+// n8 tiles, so that two MMAs on one accumulator are MI * kGroupJ MMAs apart
+// and none waits for the one before it. The order of loads and conversions
+// against the MMAs is left to the compiler over four unrolled steps
+// (prefetching the next step's fragments by hand was slower on an H100).
+template <int MI, int NJ, int PASSES>
 __device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4],
                                          const float* As, const float* Bs,
                                          int stride, int ksteps) {
+  static_assert(PASSES == 1 || PASSES == 3, "TF32 passes");
+  constexpr bool kSplit = PASSES == 3;
   const int lane = threadIdx.x & 31;
   const float* ap =
       As + ((lane & 7) + ((lane >> 3) & 1) * 8) * stride + (lane >> 4) * 4;
@@ -201,8 +207,12 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4],
       uint32_t raw[4];
       ldmatrix_x4(raw, ap + 16 * i * stride);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        tf32_split(__uint_as_float(raw[e]), ahi[i][e], alo[i][e]);
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kSplit)
+          tf32_split(__uint_as_float(raw[e]), ahi[i][e], alo[i][e]);
+        else
+          ahi[i][e] = tf32_rna(__uint_as_float(raw[e]));
+      }
     }
 #pragma unroll
     for (int jg = 0; jg < NJ; jg += kGroupJ) {
@@ -213,23 +223,31 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4],
         uint32_t h[4], l[4];
         ldmatrix_x4(h, bp + 8 * (jg + j) * stride);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          tf32_split(__uint_as_float(h[e]), h[e], l[e]);
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kSplit)
+            tf32_split(__uint_as_float(h[e]), h[e], l[e]);
+          else
+            h[e] = tf32_rna(__uint_as_float(h[e]));
+        }
         bhi[j][0] = h[0], bhi[j][1] = h[1];
         bhi[j + 1][0] = h[2], bhi[j + 1][1] = h[3];
-        blo[j][0] = l[0], blo[j][1] = l[1];
-        blo[j + 1][0] = l[2], blo[j + 1][1] = l[3];
+        if constexpr (kSplit) {
+          blo[j][0] = l[0], blo[j][1] = l[1];
+          blo[j + 1][0] = l[2], blo[j + 1][1] = l[3];
+        }
       }
+      if constexpr (kSplit) {
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < kGroupJ; ++j)
-          mma_tf32(acc[i][jg + j], alo[i], bhi[j]);
+          for (int j = 0; j < kGroupJ; ++j)
+            mma_tf32(acc[i][jg + j], alo[i], bhi[j]);
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < kGroupJ; ++j)
-          mma_tf32(acc[i][jg + j], ahi[i], blo[j]);
+          for (int j = 0; j < kGroupJ; ++j)
+            mma_tf32(acc[i][jg + j], ahi[i], blo[j]);
+      }
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -339,12 +357,12 @@ inline int stream_smem_bytes(int K) {
 // b_row(c) of B^T (nullptr: a row of zeros) stream through shared memory
 // chunk by chunk, the next chunk in flight under the MMAs of this one (two
 // stages of 23 KB at (32, 128) let four blocks share an SM, which ran 8-10%
-// faster than three blocks of three stages); both operands are split on the
-// fly and the sums stay in registers. `smem` is
+// faster than three blocks of three stages); both operands are rounded (at
+// PASSES == 3 split) on the fly and the sums stay in registers. `smem` is
 // stream_smem_bytes<PH, BW>(K) of dynamic shared memory, 16-byte aligned.
 // `vec` (16-byte copies) needs K % 4 == 0 and 16-byte aligned operands;
 // without it any K is taken.
-template <int PH, int BW, typename OutT, typename BRow>
+template <int PH, int BW, int PASSES, typename OutT, typename BRow>
 __device__ __forceinline__ void tile_mma_stream(const float* __restrict__ a,
                                                 BRow b_row, int K, bool vec,
                                                 OutT* __restrict__ out,
@@ -385,9 +403,9 @@ __device__ __forceinline__ void tile_mma_stream(const float* __restrict__ a,
     fill(c + kStreamStages - 1);
     const float* As = smem + (c % kStreamStages) * kStage;
     const float* Bs = As + TL::PHP * kChunkStride;
-    warp_mma<TL::MI, TL::NJ>(acc, As + row0 * kChunkStride,
-                             Bs + col0 * kChunkStride, kChunkStride,
-                             kChunkK / 8);
+    warp_mma<TL::MI, TL::NJ, PASSES>(acc, As + row0 * kChunkStride,
+                                     Bs + col0 * kChunkStride,
+                                     kChunkStride, kChunkK / 8);
   }
   store_tile<PH, BW>(acc, out, row0, col0);
 }

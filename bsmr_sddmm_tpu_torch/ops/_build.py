@@ -118,7 +118,7 @@ def bind_subpack(lib: ctypes.CDLL) -> None:
     """Declare ``bsmr_subpack``'s C signature on a loaded library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bsmr_subpack.restype = i
-    lib.bsmr_subpack.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.bsmr_subpack.argtypes = [p] * 6 + [i] * 10 + [p]
 
 
 def load_library() -> ctypes.CDLL:
@@ -135,10 +135,10 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bsmr_bsr_dense.restype = i
-        lib.bsmr_bsr_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.bsmr_bsr_dense.argtypes = [p] * 5 + [i] * 8 + [p]
         bind_subpack(lib)
         lib.bsmr_gathered_tile.restype = i
-        lib.bsmr_gathered_tile.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.bsmr_gathered_tile.argtypes = [p] * 5 + [i] * 7 + [p]
         build_info["path"] = path
         _lib = lib
         return _lib

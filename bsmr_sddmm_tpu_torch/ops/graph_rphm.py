@@ -12,12 +12,14 @@ sparse attention in that layout, with no round trip through CSR order:
 Row reductions are per-tile reductions plus segment ops over panels
 (``scatter_reduce(..., "amax")`` and ``index_add``); the SpMM tiers are
 per-tile (ph, bw) @ (bw, F) ``torch.bmm`` products. Those products, and
-the ones of every backward here, run in full fp32 whatever the caller's
-process set for TF32 (the JAX package takes ``precision="high"``,
-fp32-class): the SpMM is an autograd function with its own backward, so
-that no product is left to autograd's later, unpinned backward. On a CUDA
-device ``index_add`` sums in no fixed order, so results there agree with
-the CPU's to a tolerance, not bit for bit.
+the ones of every backward here, run at the ``precision`` the ``make_*``
+functions take, as the JAX ones do (default ``"high"``): in full fp32
+whatever the caller's process set for TF32, except at ``"default"``, where
+they may take one TF32 pass (``dense_kernels.tf32_matmuls``). The SpMM is
+an autograd function with its own backward, so that no product is left to
+autograd's later backward, outside that setting. On a CUDA device
+``index_add`` sums in no fixed order, so results there agree with the
+CPU's to a tolerance, not bit for bit.
 
 ``make_diff_sddmm_body`` makes the body differentiable: its forward is the
 body (on CUDA tensors the hand kernels), its backward the two SpMMs
@@ -31,7 +33,6 @@ light ``emit="rphm"`` plan leaves those maps empty and is refused.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable
 
 import numpy as np
@@ -39,22 +40,11 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from bsmr_sddmm_tpu_torch.ops.sddmm import DevicePlan
+from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+from bsmr_sddmm_tpu_torch.ops.sddmm import DevicePlan, precision_of
 from bsmr_sddmm_tpu_torch.pack import TilePlan
 
 _NEG = -1e30  # mask value; avoids inf - inf NaNs in empty rows
-
-
-@contextlib.contextmanager
-def fp32_matmul():
-    """``torch.bmm`` in full fp32 inside the block: TF32 off for CUDA
-    matmuls, the caller's setting restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def require_full_plan(plan: TilePlan, dplan: DevicePlan) -> None:
@@ -187,8 +177,9 @@ def _v_blocks(plan: TilePlan, c: dict, dplan: DevicePlan,
     return vb, vb_pk, vg
 
 
-def _spmm_parts(plan: TilePlan) -> tuple:
-    """``(forward, sampled)``, the untracked halves of the SpMM.
+def _spmm_parts(plan: TilePlan, precision: str) -> tuple:
+    """``(forward, sampled)``, the untracked halves of the SpMM, their
+    products at ``precision``.
 
     ``forward(dense, packed, gathered, res, V, dplan) -> (M, F)`` is the
     SpMM itself. ``sampled(G (M, F), V (N, F), dplan) -> four tiers`` is
@@ -212,6 +203,7 @@ def _spmm_parts(plan: TilePlan) -> tuple:
                             return_index=True)
     inv_pos[uniq] = first
     consts = _device_consts(inv_pos=inv_pos, **_column_map(plan))
+    _, tf32 = precision_of(precision)   # one TF32 pass only at "default"
 
     def forward(dense, packed, gathered, res, V, dplan: DevicePlan):
         c = consts(V.device)
@@ -223,7 +215,7 @@ def _spmm_parts(plan: TilePlan) -> tuple:
         res = torch.where(dplan.res_out < nnz, res.float(), 0.0)
         Vp = F.pad(V.float(), (0, 0, 0, n_pad - N))
         vb, vb_pk, vg = _v_blocks(plan, c, dplan, Vp)
-        with fp32_matmul():
+        with dk.tf32_matmuls(tf32):
             out = _segment_sum(torch.bmm(dense, vb), dplan.tile_panel, P)
             if Tp:
                 packed = torch.where(dplan.sp_scatter < nnz, packed.float(),
@@ -246,7 +238,7 @@ def _spmm_parts(plan: TilePlan) -> tuple:
         vb, vb_pk, vg = _v_blocks(plan, c, dplan, Vp)
 
         def tile_dots(panel, blocks, scatter):
-            with fp32_matmul():
+            with dk.tf32_matmuls(tf32):
                 dots = torch.bmm(G_panels.index_select(0, panel),
                                  blocks.transpose(1, 2))
             return torch.where(scatter < nnz, dots, 0.0)
@@ -263,11 +255,11 @@ def _spmm_parts(plan: TilePlan) -> tuple:
 
 
 class _Spmm(torch.autograd.Function):
-    """The SpMM with its own backward, so that the backward's products are
-    pinned to fp32 too: autograd's backward of the forward's ``bmm``s would
-    run later, outside :func:`fp32_matmul`, at whatever ``allow_tf32`` the
-    caller set by then. ``d vals = sampled(d out, V)``, ``dV = SpMM^T(vals,
-    d out)``."""
+    """The SpMM with its own backward, so that the backward's products run
+    at the forward's precision too: autograd's backward of the forward's
+    ``bmm``s would run later, outside that setting, at whatever
+    ``allow_tf32`` the caller set by then. ``d vals = sampled(d out, V)``,
+    ``dV = SpMM^T(vals, d out)``."""
 
     @staticmethod
     def forward(ctx, dense, packed, gathered, res, V, dplan, forward,
@@ -291,15 +283,16 @@ class _Spmm(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
-def make_spmm_rphm(plan: TilePlan) -> Callable:
+def make_spmm_rphm(plan: TilePlan, precision: str = "high") -> Callable:
     """``fn(dense, packed, gathered, res, V, dplan) -> (M, F)``: ``out[r] =
     sum_e vals[e] * V[col[e]]``, values in the rphm layout, the output in
     the ORIGINAL row order (rows the plan holds no nonzero of come back
     exactly 0). Per-tile products against the V rows each tile's columns
     meet (:func:`_v_blocks`), the residual per nonzero. Differentiable in
-    the values and ``V``, its backward in fp32 as well."""
-    forward, sampled = _spmm_parts(plan)
-    spmm_t = make_spmm_transpose_rphm(plan)
+    the values and ``V``, its backward at ``precision`` as well (a
+    ``matmul_precision`` value: fp32 but at "default")."""
+    forward, sampled = _spmm_parts(plan, precision)
+    spmm_t = make_spmm_transpose_rphm(plan, precision)
 
     def fn(dense, packed, gathered, res, V, dplan: DevicePlan):
         require_full_plan(plan, dplan)
@@ -309,14 +302,15 @@ def make_spmm_rphm(plan: TilePlan) -> Callable:
     return fn
 
 
-def make_spmm_transpose_rphm(plan: TilePlan) -> Callable:
+def make_spmm_transpose_rphm(plan: TilePlan,
+                             precision: str = "high") -> Callable:
     """``fn(dense, packed, gathered, res, A_full, dplan) -> (N, F)``: the
     column-side aggregation ``out[c] = sum_e vals[e] * A[row_e]``, the
     transpose of :func:`make_spmm_rphm` (the SDDMM's dB^T). Dense tier
     summed per column block on bsr plans, added per tile column on reorder
     plans; packed tiles land at ``sp_colperm[sp_sub * sw + j]``; gathered
-    tiles at ``g_cols``; residual per nonzero. Used in backward passes only,
-    so not differentiable itself."""
+    tiles at ``g_cols``; residual per nonzero; products at ``precision``.
+    Used in backward passes only, so not differentiable itself."""
     P = max(plan.num_panels, 1)
     ph, bw = plan.panel_height, plan.block_width
     nnz, N = plan.nnz, plan.cols
@@ -326,6 +320,7 @@ def make_spmm_transpose_rphm(plan: TilePlan) -> Callable:
     sw = plan.subblock_width
     consts = _device_consts(sub_offsets=np.arange(max(sw, 1), dtype=np.int32),
                             **_column_map(plan))
+    _, tf32 = precision_of(precision)
 
     def fn(dense, packed, gathered, res, A_full, dplan: DevicePlan):
         require_full_plan(plan, dplan)
@@ -336,7 +331,7 @@ def make_spmm_transpose_rphm(plan: TilePlan) -> Callable:
         res = torch.where(dplan.res_out < nnz, res.float(), 0.0)
         A_perm = A_full.float().index_select(0, dplan.row_perm_padded)
         A_panels = A_perm.reshape(P, ph, nf)
-        with fp32_matmul():
+        with dk.tf32_matmuls(tf32):
             d_part = torch.bmm(dense.transpose(1, 2),
                                A_panels.index_select(0, dplan.tile_panel))
             if "tile_cblock" in c:
@@ -390,13 +385,15 @@ class _DiffSddmm(torch.autograd.Function):
         return dA, dBt, None, None, None, None
 
 
-def make_diff_sddmm_body(plan: TilePlan, body: Callable) -> Callable:
+def make_diff_sddmm_body(plan: TilePlan, body: Callable,
+                         precision: str = "high") -> Callable:
     """Wrap a ``make_sddmm_body(..., emit="rphm")`` callable so that
     autograd differentiates through it: ``fn(A, Bt, dplan) -> (dense,
     packed, gathered, res)``, backward ``dA = SpMM(dP, B^T)`` and ``dB^T =
-    SpMM^T(dP, A)``. ``dplan`` must be the full device plan."""
-    spmm = make_spmm_rphm(plan)
-    spmm_t = make_spmm_transpose_rphm(plan)
+    SpMM^T(dP, A)`` at ``precision``. ``dplan`` must be the full device
+    plan."""
+    spmm = make_spmm_rphm(plan, precision)
+    spmm_t = make_spmm_transpose_rphm(plan, precision)
 
     def diff_body(A: torch.Tensor, Bt: torch.Tensor, dplan: DevicePlan):
         require_full_plan(plan, dplan)
@@ -405,18 +402,20 @@ def make_diff_sddmm_body(plan: TilePlan, body: Callable) -> Callable:
     return diff_body
 
 
-def make_sparse_attention_rphm(plan: TilePlan, body: Callable) -> Callable:
+def make_sparse_attention_rphm(plan: TilePlan, body: Callable,
+                               precision: str = "high") -> Callable:
     """One attention head in the tile layout: ``fn(q, k, v, dplan) -> (M,
     F) = SpMM(softmax(SDDMM(q, k) / sqrt(dk)), v)``, differentiable end to
     end (the SDDMM through :func:`make_diff_sddmm_body`, the SpMM through
-    its own fp32 backward, the softmax through torch's own rules). ``body``
+    its own backward, the softmax through torch's own rules), the SpMMs'
+    products at ``precision`` (the body runs at its config's). ``body``
     is a ``make_sddmm_body(..., emit="rphm")`` callable. Over a mesh one
     head is built per shard plan around one body of ``plans[0]``: the
     shapes are common, the constants (column map, row positions) each
     plan's own."""
     softmax = make_edge_softmax_rphm(plan)
-    spmm = make_spmm_rphm(plan)
-    diff_body = make_diff_sddmm_body(plan, body)
+    spmm = make_spmm_rphm(plan, precision)
+    diff_body = make_diff_sddmm_body(plan, body, precision)
     inv_sqrt = float(1.0 / np.sqrt(plan.k))
 
     def fn(q: torch.Tensor, kk: torch.Tensor, v: torch.Tensor,

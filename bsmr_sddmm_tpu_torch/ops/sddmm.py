@@ -15,6 +15,30 @@ The counterpart of ``bsmr_sddmm_tpu.ops.sddmm`` (``device_plan``,
    else a row gather of each tile's bw columns and one ``bmm``;
 5. residual: two row gathers and a multiply-sum per nonzero.
 
+On CUDA tensors the tiers may run on two streams, the CUDA original's
+split of its tensor-core and CUDA-core kernels
+(src/sddmmKernel.cu:2555-2648): the caller's current stream runs
+``A_perm``, the dense and the packed tier, and a side stream of the body
+(one per device) runs the gathered tier and the residual, forked after
+``A_perm`` and joined before the output is put together.
+``config.tier_serialize`` chooses as the JAX body does
+(:func:`_serialize_tiers`): where it says serialize, and on CPU tensors,
+the four tiers run one after another on the current stream. Otherwise
+"off" (or False) forks every call, and "auto" forks a call that is being
+captured into a CUDA graph (:func:`_forks`): an eager call is bound by the
+host's enqueue on the card, which the fork lengthens with nothing to
+overlap, while a replay pays the fork once. Either way the values are the
+same, bit for bit.
+
+``config.matmul_precision`` sets the numerics of every tier, as
+``_PRECISION`` does in the JAX body (:data:`PRECISION`): ``"default"`` runs
+the hand kernels in one TF32 pass (the CUDA original's arithmetic) and lets
+the torch tiers' matmuls take TF32; ``"bf16x3"``, ``"high"`` and
+``"highest"`` run the kernels' three-pass split and pin the torch tiers to
+fp32, whatever the caller set in ``torch.backends.cuda.matmul.allow_tf32``.
+``"highest"`` keeps the split too: within ``1e-5·(|A|·|B|ᵀ)`` of an fp32
+product.
+
 The output is the four tiers' arrays (``emit="rphm"``), one gather of
 their concatenation along ``rphm_to_csr`` (``emit="csr"``, CSR value order),
 or every padded slot of the four tiers scattered into a zero vector of
@@ -67,6 +91,57 @@ class DevicePlan(NamedTuple):
     res_col: torch.Tensor           # (E,)
     res_out: torch.Tensor           # (E,)
     rphm_to_csr: torch.Tensor       # (nnz,)
+
+
+#: ``matmul_precision`` -> (TF32 passes of the hand kernels, whether the
+#: torch tiers' CUDA matmuls may take one TF32 pass): the card's form of the
+#: JAX body's ``_PRECISION`` (bsmr_sddmm_tpu/ops/sddmm.py:31-38).
+PRECISION = {
+    "default": (1, True),
+    "bf16x3": (3, False),
+    "high": (3, False),
+    "highest": (3, False),
+}
+
+
+def precision_of(matmul_precision: str) -> tuple:
+    """``(passes, allow_tf32)`` of a ``matmul_precision`` value."""
+    if matmul_precision not in PRECISION:
+        raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+    return PRECISION[matmul_precision]
+
+
+def _serialize_tiers(plan: TilePlan, config: SddmmConfig) -> bool:
+    """Decide the tier_serialize arm, as the JAX body's ``_serialize_tiers``
+    (bsmr_sddmm_tpu/ops/sddmm.py:121-150) does, from this package's copies
+    of its cost model: "on" / True and "off" / False force it; "auto"
+    serializes a windowed or big-gather-footprint plan whose residual tier
+    the cost table prices above 0.45 of the whole call."""
+    mode = config.tier_serialize
+    if mode in (True, "on"):
+        return True
+    if mode in (False, "off"):
+        return False
+    from bsmr_sddmm_tpu_torch.autotune import (_big_gather_footprint,
+                                               current_costs,
+                                               estimate_plan_ms)
+    if plan.window_rows is None and not _big_gather_footprint(plan):
+        return False
+    costs = current_costs()
+    k = plan.k
+    res_ms = plan.num_residual * (
+        costs["pernnz_big_base_ns"]
+        + costs["pernnz_big_k_ns"] * k) / 1e6
+    total_ms = max(estimate_plan_ms(plan, costs)
+                   - costs["fixed_us"] / 1e3, 1e-9)
+    return res_ms / total_ms > 0.45
+
+
+def _forks(config: SddmmConfig, capturing: bool) -> bool:
+    """Whether a call that ``_serialize_tiers`` lets overlap takes the
+    side stream: always at "off" / False, and at "auto" when the call is
+    captured into a CUDA graph (``capturing``)."""
+    return config.tier_serialize in (False, "off") or capturing
 
 
 def resolve_device(device=None) -> torch.device:
@@ -139,12 +214,19 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     in the JAX body's order (dense, packed when Tp > 0, gathered,
     residual), pad slots into the trash slot ``nnz``, so ``[:nnz]`` is the
     CSR-order result. It reads the scatter maps, so it needs the full
-    ``device_plan`` (not the ``emit="rphm"`` one). ``only_tier`` ("dense" | "packed" | "gathered" |
-    "residual") returns that tier's array alone. ``backend`` "auto" runs
-    the hand kernels on CUDA tensors and their plain versions on CPU
-    tensors; "torch" runs the plain versions everywhere. The gathered tier
-    runs ``fused_gathered`` exactly when the JAX body picks its fused arm:
-    ``gathered_backend="fused"``, Tg > 0 and no gather windows."""
+    ``device_plan`` (not the ``emit="rphm"`` one). ``only_tier``
+    ("dense" | "packed" | "gathered" | "residual") returns that tier's
+    array alone. ``backend`` "auto" runs the hand kernels on CUDA tensors
+    and their plain versions on CPU tensors; "torch" runs the plain
+    versions everywhere. The gathered tier runs ``fused_gathered`` exactly
+    when the JAX body picks its fused arm: ``gathered_backend="fused"``,
+    Tg > 0 and no gather windows. Where ``_serialize_tiers`` lets the
+    tiers overlap and :func:`_forks` says so, a call on CUDA tensors with
+    a gathered tier or a residual forks those two onto the body's side
+    stream of that device (created at the device's first fork) and joins
+    it before ``emit``; the fork is taken from the stream current at call
+    time, so a call can be captured into a CUDA graph. ``fn.forks`` counts
+    the calls that forked."""
     backend = config.backend if backend is None else backend
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -164,6 +246,11 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     fused = (config.gathered_backend == "fused" and Tg > 0
              and plan.g_groups is None)
     plain = backend == "torch"
+    passes, allow_tf32 = precision_of(config.matmul_precision)
+    serialize = only_tier is None and _serialize_tiers(plan, config)
+    E = plan.res_arow.shape[0]
+    side_work = Tg > 0 or E > 0
+    side_streams = {}        # device -> the body's side stream
     packed_op = dk.subpack_plain if plain else dk.subpack
     fused_op = dk.fused_gathered_plain if plain else dk.fused_gathered
 
@@ -172,22 +259,23 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
 
         def dense_out(A_panels, Bt, dplan):
             return bsr_op(A_panels, Bt, dplan.tile_panel, dplan.tile_src,
-                          fat_group=G, block_width=bw, out_dtype=out_dt)
+                          fat_group=G, block_width=bw, out_dtype=out_dt,
+                          passes=passes)
     else:
         tile_op = dk.dense_tile_plain if plain else dk.dense_tile
 
         def dense_out(A_panels, Bt, dplan):
             return tile_op(A_panels, Bt, dplan.tile_panel, dplan.tile_src,
-                           out_dtype=out_dt)
+                           out_dtype=out_dt, passes=passes)
 
     def packed_out(A_panels, Bt, dplan):
         if Tp == 0:
             return A_panels.new_empty((0, ph, bw), dtype=out_dt)
         return packed_op(A_panels, Bt, dplan.sp_colperm, dplan.sp_panel,
-                         dplan.sp_sub, subblock_width=sw, out_dtype=out_dt)
+                         dplan.sp_sub, subblock_width=sw, out_dtype=out_dt,
+                         passes=passes)
 
     budget = config.tier_memory_mb << 20
-    E = plan.res_arow.shape[0]
     # row chunks above the budget, as the JAX body cuts them
     # (bsmr_sddmm_tpu/ops/sddmm.py:464-479, 515-527)
     g_step = max(Tg, 1) if Tg * bw * k * 4 <= budget else _big_chunk(
@@ -198,7 +286,7 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     def gathered_out(A_panels, Bt, dplan):
         if fused:
             return fused_op(A_panels, Bt, dplan.g_panel, dplan.g_cols,
-                            out_dtype=out_dt)
+                            out_dtype=out_dt, passes=passes)
         parts = []
         for s in range(0, Tg, g_step):
             cols = dplan.g_cols[s:s + g_step]
@@ -215,7 +303,30 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
             parts.append((a * b).sum(-1).to(out_dt))
         return _joined(parts, (0,), A_perm, out_dt)
 
-    def fn(A: torch.Tensor, Bt: torch.Tensor, dplan: DevicePlan):
+    def two_streams(A_perm, A_panels, Bt, dplan):
+        """The four tiers, the gathered tier and the residual computed on
+        the side stream. Their outputs are allocated there and read on the
+        current stream, so the allocator is told (record_stream); the
+        operands the side stream reads stay referenced here until the
+        join."""
+        fn.forks += 1
+        device = A_perm.device
+        if device not in side_streams:
+            side_streams[device] = torch.cuda.Stream(device)
+        side = side_streams[device]
+        main = torch.cuda.current_stream(device)
+        side.wait_stream(main)                  # fork after A_perm
+        dense = dense_out(A_panels, Bt, dplan)
+        packed = packed_out(A_panels, Bt, dplan)
+        with torch.cuda.stream(side):
+            gathered = gathered_out(A_panels, Bt, dplan)
+            res = residual_out(A_perm, Bt, dplan)
+        main.wait_stream(side)                  # join before emit
+        gathered.record_stream(main)
+        res.record_stream(main)
+        return dense, packed, gathered, res
+
+    def tiers_of(A, Bt, dplan):
         A = A.to(torch.float32)
         Bt = Bt.to(torch.float32).contiguous()
         A_perm = A.index_select(0, dplan.row_perm_padded)     # (P*ph, K)
@@ -228,11 +339,18 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
             return gathered_out(A_panels, Bt, dplan)
         if only_tier == "residual":
             return residual_out(A_perm, Bt, dplan)
-        tiers = (dense_out(A_panels, Bt, dplan),
-                 packed_out(A_panels, Bt, dplan),
-                 gathered_out(A_panels, Bt, dplan),
-                 residual_out(A_perm, Bt, dplan))
-        if emit == "rphm":
+        if (A_perm.is_cuda and not serialize and side_work and _forks(
+                config, torch.cuda.is_current_stream_capturing())):
+            return two_streams(A_perm, A_panels, Bt, dplan)
+        return (dense_out(A_panels, Bt, dplan),
+                packed_out(A_panels, Bt, dplan),
+                gathered_out(A_panels, Bt, dplan),
+                residual_out(A_perm, Bt, dplan))
+
+    def fn(A: torch.Tensor, Bt: torch.Tensor, dplan: DevicePlan):
+        with dk.tf32_matmuls(allow_tf32):
+            tiers = tiers_of(A, Bt, dplan)
+        if only_tier is not None or emit == "rphm":
             return tiers
         if emit == "csr":
             big = torch.cat([t.reshape(-1) for t in tiers])
@@ -249,6 +367,7 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
             out[m.reshape(-1).long()] = tier.reshape(-1)
         return out
 
+    fn.forks = 0
     return fn
 
 

@@ -9,10 +9,10 @@ The kernel sources hold one design and no switches. This script copies
 edit whose text is not found exactly once fails the run, so the script
 cannot drift from the sources unnoticed), compiles each copy's
 ``subpack.cu`` (all ``nvcc`` started together) and times every variant's
-``bsmr_subpack`` as a replayed CUDA graph, twice, in turns, on the packed
-tiers of banded_mesh_32k: the bsr plan (alpha 0.3, delta 0.002) at K = 128
-and 32 and the ``col_mode="reorder"`` plan (alpha 0.3, delta 0.05) at
-K = 128, subpack 12, fp32 out.
+``bsmr_subpack`` at three TF32 passes as a replayed CUDA graph, twice, in
+turns, on the packed tiers of banded_mesh_32k: the bsr plan (alpha 0.3,
+delta 0.002) at K = 128 and 32 and the ``col_mode="reorder"`` plan (alpha
+0.3, delta 0.05) at K = 128, subpack 12, fp32 out.
 
 Variants:
 
@@ -61,18 +61,20 @@ VARIANTS = {
     "no_copies": (("tile_mma.cuh", "    if (chunk < chunks) {\n      float* As",
                    "    if (chunk < 0) {\n      float* As"),),
     "no_mmas": (("tile_mma.cuh",
-                 "    warp_mma<TL::MI, TL::NJ>(acc, As + row0 * kChunkStride,\n"
-                 "                             Bs + col0 * kChunkStride, "
+                 "    warp_mma<TL::MI, TL::NJ, PASSES>(acc, As + row0 * "
                  "kChunkStride,\n"
-                 "                             kChunkK / 8);\n",
+                 "                                     Bs + col0 * "
+                 "kChunkStride,\n"
+                 "                                     kChunkStride, "
+                 "kChunkK / 8);\n",
                  "    if (K < 0) acc[0][0][0] = As[row0] + Bs[col0];\n"),),
     "no_split": (("tile_mma.cuh",
-                  "        tf32_split(__uint_as_float(raw[e]), ahi[i][e], "
+                  "          tf32_split(__uint_as_float(raw[e]), ahi[i][e], "
                   "alo[i][e]);",
-                  "        ahi[i][e] = alo[i][e] = raw[e];"),
+                  "          ahi[i][e] = alo[i][e] = raw[e];"),
                  ("tile_mma.cuh",
-                  "          tf32_split(__uint_as_float(h[e]), h[e], l[e]);",
-                  "          l[e] = h[e];")),
+                  "            tf32_split(__uint_as_float(h[e]), h[e], l[e]);",
+                  "            l[e] = h[e];")),
     "no_stores": (("tile_mma.cuh",
                    "  store_tile<PH, BW>(acc, out, row0, col0);\n}",
                    "  if (K < 0) store_tile<PH, BW>(acc, out, row0, col0);\n}"),),
@@ -124,7 +126,7 @@ def launcher(lib, A_panels, B, colperm, sp_panel, sp_sub, sw, H):
         err = lib.bsmr_subpack(
             A_panels.data_ptr(), B.data_ptr(), colperm.data_ptr(),
             sp_panel.data_ptr(), sp_sub.data_ptr(), out.data_ptr(), Tp, S,
-            sw, ph, S * sw, K, H, B.shape[0], 0,
+            sw, ph, S * sw, K, H, B.shape[0], 0, 3,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"bsmr_subpack: cudaError {err}")

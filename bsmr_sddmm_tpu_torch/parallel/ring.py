@@ -24,6 +24,9 @@ resident panel (fat group 1), the gathered tier ``dense_kernels.
 dense_tile`` over panel-local columns, and the residual two row gathers
 and a multiply-sum. (The JAX body computes the two tile tiers with XLA's
 ``dot_general``.) A call launches each tile kernel n times per shard.
+``config.matmul_precision`` sets the kernels' TF32 pass count as it does
+in the body (``ops.sddmm.PRECISION``); the ring has no torch matmul of its
+own (the plain versions of ``backend="torch"`` follow the pass count).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import CSR
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+from bsmr_sddmm_tpu_torch.ops.sddmm import precision_of
 from bsmr_sddmm_tpu_torch.parallel import collectives
 from bsmr_sddmm_tpu_torch.parallel.sharding import Mesh, put_global
 from bsmr_sddmm_tpu_torch.reorder import BsmrReordering, _concat_ranges
@@ -380,6 +384,7 @@ def make_ring_sddmm(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
     plain = backend == "torch"
     bsr_op = dk.bsr_dense_plain if plain else dk.bsr_dense
     tile_op = dk.dense_tile_plain if plain else dk.dense_tile
+    passes, _ = precision_of(config.matmul_precision)
     n = mesh.size
     plan = pack_ring_plans(csr, reord, config, n, k=k)
     ph, bw, kk = plan.panel_height, plan.block_width, plan.k
@@ -402,9 +407,9 @@ def make_ring_sddmm(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
 
     def step(sh, A_perm, A_panels, B_cur, p):
         dense = bsr_op(A_panels, B_cur, sh["tile_rp"][p], sh["tile_cb"][p],
-                       fat_group=1, block_width=bw)
-        gathered = (tile_op(A_panels, B_cur, sh["g_rp"][p], sh["g_cl"][p])
-                    if Tg else None)
+                       fat_group=1, block_width=bw, passes=passes)
+        gathered = (tile_op(A_panels, B_cur, sh["g_rp"][p], sh["g_cl"][p],
+                            passes=passes) if Tg else None)
         a = A_perm.index_select(0, sh["res_ar"][p])
         b = B_cur.index_select(0, sh["res_cl"][p])
         return dense, gathered, (a * b).sum(-1)

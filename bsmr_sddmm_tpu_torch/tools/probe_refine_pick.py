@@ -42,10 +42,12 @@ SUBS = (0, 12)
 
 
 def probe_cell(name: str, csr, K: int, device, iterations: int = 10,
-               echo: Callable[[str], None] = print) -> dict:
-    """Sweep ALPHAS x DELTAS x SUBS on ``csr`` at ``K`` and place the host
-    and the refined picks against the best: ``{matrix, k, sweep_best:
-    [arm, ms], host_pick: [arm, ms, fraction], refined_pick: [...]}``."""
+               echo: Callable[[str], None] = print,
+               alphas=ALPHAS) -> dict:
+    """Sweep ``alphas`` x DELTAS x SUBS on ``csr`` at ``K`` and place the
+    host and the refined picks, chosen over the same grid, against the
+    best: ``{matrix, k, sweep_best: [arm, ms], host_pick: [arm, ms,
+    fraction], refined_pick: [...]}``."""
     import torch
 
     from bsmr_sddmm_tpu_torch.autotune import choose_config
@@ -64,7 +66,7 @@ def probe_cell(name: str, csr, K: int, device, iterations: int = 10,
     B = torch.from_numpy(np.ascontiguousarray(
         make_dense(K, csr.cols, seed=1338).T)).to(device)
     sweep = {}
-    for alpha in ALPHAS:
+    for alpha in alphas:
         for delta in DELTAS:
             for sub in SUBS:
                 log = pipes[sub].benchmark(A, B, alpha=alpha, delta=delta,
@@ -77,7 +79,7 @@ def probe_cell(name: str, csr, K: int, device, iterations: int = 10,
 
     def pick_ms(refine):
         choice = choose_config(csr, p0._row_reordering, cfg,
-                               alphas=ALPHAS, candidates=DELTAS,
+                               alphas=alphas, candidates=DELTAS,
                                k=K, allow_dense=False,
                                refine_top=refine, device=device)
         key = (choice.alpha, choice.delta, choice.subpack)

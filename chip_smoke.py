@@ -11,7 +11,9 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    sources in the same checkout loads that library, and says so);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of plans packed from the SUITE matrix banded_mesh_32k at
-   K=128 and K=32 (fp32 and fp16 output), with max errors; the kernel's
+   K=128 and K=32 (fp32 and fp16 output), at three TF32 passes and at one
+   (matmul_precision="default"; there the library call is torch.bmm with
+   TF32 allowed), with max errors; the kernel's
    time (a replayed CUDA graph, twice, in turns with the others) beside
    its bound (dense_kernels.tile_work: the least time an H100 could take
    for this launch's bytes and operations), its share of the bound, the
@@ -29,12 +31,25 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    of the kernels it runs, set to 0 just before it, must rise during it;
    then one pipe.run() per run counts each kernel's launches per call,
    and torch.profiler over 20 calls of the bsr and the reorder body on
-   banded_mesh_32k gives device busy time, host enqueue time, each
+   banded_mesh_32k (at tier_serialize "off", whose eager calls fork as a
+   replay of "auto" does) gives device busy time, host enqueue time, each
    device kernel's share and the index_select calls per call ([profile]).
    benchmark() times a replayed CUDA graph of one call (sddmm_ms), printed
    beside the eager calls' time (sddmm_eager_ms, host enqueue included);
    the banded bsr run's sddmm_ms must read within HEADLINE_RTOL of
-   [profile]'s device busy for that body;
+   [profile]'s device busy for that body (the union of its kernels'
+   intervals, printed beside their sum: the tiers overlap on two streams).
+   Then the settings runs ([main settings]): both fp32 bsr cells with
+   tier_serialize "on" (one stream) and "off" (the gathered tier and the
+   residual on a side stream), and with matmul_precision="default" (one
+   TF32 pass), each validated and printing sddmm_ms and sddmm_eager_ms;
+   the rphm outputs of "on" and "off" must be bit-equal, and so must those
+   of a "bf16x3" body called with torch.backends.cuda.matmul.allow_tf32 =
+   True and with False. Each cell's body at "on", "off" and "auto" is
+   then timed in turns (replayed, eager, host enqueue; medians), and so
+   is banded_mesh_64k at K=256, where "auto" serializes; the arms must
+   agree bit for bit, and each must fork the calls it should ("off"
+   every call, "auto" the captured ones where it lets the tiers overlap);
 5. autotune: on banded_mesh_32k and community_20k at K=128, subpack 12,
    BsmrSddmm.choose(alpha="auto", refine_top=4) priced with V5E_COSTS: the
    pick of its estimates, each candidate's measured ms and the measured
@@ -56,7 +71,8 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    fit_costs_from_audit on the subpack-0 rows, its table
    beside V5E_COSTS and its quality, written to the card's cost cache,
    read back by current_costs() and the pick checked again under it;
-   probe_refine_pick's host and refined picks on community_20k;
+   probe_refine_pick's host and refined picks on community_20k (alpha
+   0.1 and 0.3);
    profile_tiers on banded_mesh_32k;
 8. dense: the dense fallback (delta="dense") and the best tiled plan
    priced with V5E_COSTS, at its (delta, subpack), on
@@ -81,7 +97,8 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    CSR oracles of ops.graph under autograd, which share no code with the
    tile layout; one Adam step at GRAPH_SMALL_LR that must lower the loss
    from the same weights (put back after it); then train steps at the
-   default lr with a finite loss and their profile split;
+   default lr with a finite loss and their profile split, and the step
+   at tier_serialize "auto" and "off" timed in turns;
 11. batched: make_batched_sddmm_fn at Z=4 on the community_20k plan, K=128,
    against four single calls of the body;
 12. sharded: the parallel layer's sharded SDDMM over a 4-shard mesh (4
@@ -165,7 +182,9 @@ PKG = "bsmr_sddmm_tpu_torch"
 # plain version is an fp32 bmm (allow_tf32 False); all four kernels run on
 # tensor cores in three TF32 passes, which drop only the lo*lo term of each
 # product (~2^-22 relative) and sum in another order, so they agree to a
-# few fp32 ulps of the sum, not bit for bit.
+# few fp32 ulps of the sum, not bit for bit. At one pass the plain version
+# multiplies the operands rounded to TF32, whose products the MMA computes
+# exactly: again only the order of summation differs.
 # fp16: each side rounds its fp32 sum to fp16 once, so they differ by at
 # most one fp16 ulp (rel 2^-10), which is the check_data tolerance (abs
 # 1e-5 OR rel 1e-3).
@@ -250,10 +269,11 @@ def covered_rows(torch, ids, width, limit):
     return int((first + width).clamp(max=limit).sub(first).clamp(min=0).sum())
 
 
-def launch_work(torch, dk, name, args, kw, out_dtype):
-    """dense_kernels.tile_work of one launch: every operand row it
-    references counted once, the index arrays once, the output once.
-    ``args`` are the wrapper's: (A_panels, B, ..., panel ids, B ids)."""
+def launch_work(torch, dk, name, args, kw, out_dtype, passes):
+    """dense_kernels.tile_work of one launch at ``passes`` TF32 passes:
+    every operand row it references counted once, the index arrays once,
+    the output once. ``args`` are the wrapper's: (A_panels, B, ..., panel
+    ids, B ids)."""
     A_panels, B = args[:2]
     panel, src = args[-2:]
     ph, k = A_panels.shape[1], A_panels.shape[2]
@@ -278,7 +298,8 @@ def launch_work(torch, dk, name, args, kw, out_dtype):
             ids = torch.unique(src)
         b_rows = int(((ids >= 0) & (ids < B.shape[0])).sum())
     return dk.tile_work(panel.shape[0], ph, bw, k, out_dtype, a_rows=a_rows,
-                        b_rows=b_rows, index_bytes=index_bytes)
+                        b_rows=b_rows, index_bytes=index_bytes,
+                        passes=passes)
 
 
 def library_operands(torch, name, args, kw):
@@ -310,51 +331,76 @@ def library_operands(torch, name, args, kw):
 
 
 def check_case(torch, dk, results, name, label, args, kw, keep):
-    """One kernel at one plan's shapes, fp32 and fp16 output: against its
-    plain version, and timed beside its bound, the library call and the
-    plain version. ``keep``: these are the times of the kernels line."""
+    """One kernel at one plan's shapes, fp32 and fp16 output, at three TF32
+    passes and at one: against its plain version at the same pass count,
+    and timed (fp16 at three passes only) beside its bound, the library
+    call and the plain version. The library call is ``torch.bmm`` in fp32
+    at three passes and with TF32 allowed (the library's one pass) at one.
+    ``keep``: these are the times of the kernels line (the one-pass ones
+    under ``one_pass``)."""
     from bsmr_sddmm_tpu_torch.utils.timing import time_cuda, time_cuda_graph
     kern, plain = getattr(dk, name), getattr(dk, f"{name}_plain")
     failures = []
     a, b = library_operands(torch, name, args, kw)
-    for od in ("float32", "float16"):
-        dt = getattr(torch, od)
-        got = kern(*args, out_dtype=dt, **kw)
-        want = plain(*args, out_dtype=dt, **kw)
-        torch.cuda.synchronize()
-        max_abs, max_rel, ok = compare(torch, got, want, od)
-        work = launch_work(torch, dk, name, args, kw, dt)
-        # in turns: kernel, library, plain, kernel. A launch of 0.05 ms is
-        # shorter than its enqueue, so the short ones replay a CUDA graph
-        first, _ = time_cuda_graph(lambda: kern(*args, out_dtype=dt, **kw))
-        lib_ms = None
-        if od == "float32":
-            lib_ms, lib = time_cuda_graph(lambda: torch.bmm(a, b.mT))
-            if compare(torch, lib, want, od)[2] is False:
-                failures.append(f"library call differs: {name} {label}")
-            del lib
-        plain_ms, _ = time_cuda(lambda: plain(*args, out_dtype=dt, **kw),
-                                iterations=20)
-        again, _ = time_cuda_graph(lambda: kern(*args, out_dtype=dt, **kw))
-        ms = (first + again) / 2
-        say(f"[kernels]   {name} {label} {od} out={tuple(got.shape)}: "
-            f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-            f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms ({first:.4f}, "
-            f"{again:.4f}); bound {work['bound_ms']:.4f} ms "
-            f"({work['bound_by']}: {work['bytes'] / 1e6:.1f} MB, "
-            f"{work['flops'] / 1e9:.2f} GFLOP x 3 passes), share of bound "
-            f"{work['bound_ms'] / ms:.0%}; library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; plain "
-            f"{plain_ms:.4f} ms")
-        if not ok:
-            failures.append(f"{name} {label} {od}")
-        rec = results[name]
-        if od == "float32":
-            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
-            if keep:
-                rec.update(ms=ms, plain_ms=plain_ms,
-                           bound_ms=work["bound_ms"],
-                           bound_by=work["bound_by"], library_ms=lib_ms)
+
+    def library(passes):
+        with dk.tf32_matmuls(passes == 1):
+            return torch.bmm(a, b.mT)
+
+    for passes in (3, 1):
+        for od in ("float32", "float16"):
+            dt = getattr(torch, od)
+            kwp = dict(kw, out_dtype=dt, passes=passes)
+            got = kern(*args, **kwp)
+            want = plain(*args, **kwp)
+            torch.cuda.synchronize()
+            max_abs, max_rel, ok = compare(torch, got, want, od)
+            head = (f"[kernels]   {name} {label} {od} {passes} pass"
+                    f"{'es' if passes > 1 else ''} out={tuple(got.shape)}: "
+                    f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+                    f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                failures.append(f"{name} {label} {od} passes={passes}")
+            rec = results[name]
+            if od == "float32":
+                rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
+            if od == "float16" and passes == 1:
+                say(head)
+                continue
+            work = launch_work(torch, dk, name, args, kw, dt, passes)
+            # in turns: kernel, library, plain, kernel. A launch of 0.05 ms
+            # is shorter than its enqueue, so the short ones replay a CUDA
+            # graph
+            first, _ = time_cuda_graph(lambda: kern(*args, **kwp))
+            lib_ms = None
+            if od == "float32":
+                lib_ms, lib = time_cuda_graph(lambda: library(passes))
+                # the library's TF32 pass rounds as it likes: held at the
+                # check_data tolerance there, at the kernels' at fp32
+                if not compare(torch, lib, want,
+                               "float32" if passes == 3 else "float16")[2]:
+                    failures.append(f"library call differs: {name} {label} "
+                                    f"passes={passes}")
+                del lib
+            plain_ms, _ = time_cuda(lambda: plain(*args, **kwp),
+                                    iterations=20)
+            again, _ = time_cuda_graph(lambda: kern(*args, **kwp))
+            ms = (first + again) / 2
+            say(f"{head}; kernel {ms:.4f} ms ({first:.4f}, {again:.4f}); "
+                f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}: "
+                f"{work['bytes'] / 1e6:.1f} MB, {work['flops'] / 1e9:.2f} "
+                f"GFLOP x {passes} pass{'es' if passes > 1 else ''}), share "
+                f"of bound {work['bound_ms'] / ms:.0%}; library "
+                f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; plain "
+                f"{plain_ms:.4f} ms")
+            if keep and od == "float32":
+                times = dict(ms=ms, plain_ms=plain_ms,
+                             bound_ms=work["bound_ms"],
+                             bound_by=work["bound_by"], library_ms=lib_ms)
+                if passes == 3:
+                    rec.update(times)
+                else:
+                    rec["one_pass"] = times
     return failures
 
 
@@ -542,6 +588,166 @@ def main_path(bt, dev, suite, results, picks):
     return failures
 
 
+#: [main]'s settings runs on the fp32 bsr cells of MAIN: (tier_serialize,
+#: matmul_precision); "auto" lets both plans overlap, and forks the
+#: captured (replayed) call only
+SETTINGS = (("on", "bf16x3"), ("off", "bf16x3"), ("auto", "default"))
+#: the stream arms timed in turns: rounds, eager calls a round
+STREAM_ROUNDS, STREAM_CALLS = 7, 50
+#: the cell where "auto" serializes (_serialize_tiers True: a big-gather
+#: footprint whose residual the v5e table prices above 0.45 of the call)
+SERIAL_CELL = ("banded_mesh_64k", 256, 0.3, 0.002)
+
+
+def stream_arms(torch, label, plan, cfg, A_t, Bt_t, dp, smi):
+    """The body at tier_serialize "on", "off" and "auto" timed in turns
+    (STREAM_ROUNDS rounds, the order flipped each round): the eager call
+    (CUDA events over STREAM_CALLS back-to-back calls), the host's enqueue
+    of those calls (perf_counter), and a replayed CUDA graph; the medians,
+    each arm's forks, and whether the three agree bit for bit."""
+    import statistics
+    from bsmr_sddmm_tpu_torch.ops.sddmm import (_serialize_tiers,
+                                                make_sddmm_body)
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda_graph
+    modes = ("on", "off", "auto")
+    bodies = {m: make_sddmm_body(plan, cfg.replace(tier_serialize=m),
+                                 emit="rphm") for m in modes}
+    outs = {m: b(A_t, Bt_t, dp) for m, b in bodies.items()}
+    eager = {m: [] for m in modes}
+    host = {m: [] for m in modes}
+    replay = {m: [] for m in modes}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for r in range(STREAM_ROUNDS):
+        for m in (modes if r % 2 else modes[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(STREAM_CALLS):
+                bodies[m](A_t, Bt_t, dp)
+            host[m].append((time.perf_counter() - t0) * 1e3 / STREAM_CALLS)
+            end.record()
+            end.synchronize()
+            eager[m].append(start.elapsed_time(end) / STREAM_CALLS)
+            if r < 3:
+                replay[m].append(time_cuda_graph(bodies[m], A_t, Bt_t,
+                                                 dp)[0])
+    torch.cuda.synchronize()
+    med = statistics.median
+    equal = all(torch.equal(x, y) for m in modes[1:]
+                for x, y in zip(outs[m], outs["on"]))
+    # each replayed graph is a warm-up call and the captured one
+    calls = 1 + STREAM_ROUNDS * STREAM_CALLS + 2 * 3
+    want = {"on": 0, "off": calls,
+            "auto": 0 if _serialize_tiers(plan, cfg) else 3}
+    forks = {m: bodies[m].forks for m in modes}
+    say(f"[main] {label} stream arms in turns ({STREAM_ROUNDS} rounds of "
+        f"{STREAM_CALLS} eager calls, 3 replayed graphs; medians; {smi}):")
+    for m in modes:
+        say(f"[main]   tier_serialize={m}: replayed {med(replay[m]):.4f} ms"
+            f", eager {med(eager[m]):.4f} ms a call (host enqueue "
+            f"{med(host[m]):.4f} ms); calls that forked {forks[m]} of "
+            f"{calls}")
+    say(f"[main]   the three arms bit-equal tier by tier: {equal}")
+    failures = [] if equal else [f"{label}: stream arms differ"]
+    if forks != want:
+        failures.append(f"{label}: forks {forks}, want {want}")
+    return failures
+
+
+def settings_path(torch, bt, dev, suite, results, smi):
+    """[main], second part: the fp32 bsr cells of MAIN with the tiers on
+    one stream ("on"), on two ("off") and in one TF32 pass ("default"),
+    each BsmrSddmm.benchmark(validate=True), each kernel launched; the rphm
+    outputs of "on" and "off" must be bit-equal; then the "bf16x3" cell
+    with the caller's allow_tf32 = True, whose outputs must be bit-equal to
+    those with False. Then each cell's stream arms in turns, and those of
+    SERIAL_CELL, where "auto" keeps one stream."""
+    from bsmr_sddmm_tpu_torch import datasets
+    from bsmr_sddmm_tpu_torch.ops.sddmm import (_forks, _serialize_tiers,
+                                                device_plan, make_sddmm_body)
+    failures = []
+    for name, alpha, delta, od, mode, gb, _, expect in MAIN:
+        if (mode, gb, od) != ("bsr", "xla", "float32"):
+            continue
+        csr = suite[name]
+        base = bt.SddmmConfig(k=128, alpha=alpha, delta=delta,
+                              subpack_min_nnz=12)
+        A = bt.make_dense(csr.rows, 128, seed=1337)
+        B = bt.make_dense(128, csr.cols, seed=1338)
+        A_t = torch.from_numpy(A).to(dev)
+        Bt_t = torch.from_numpy(B.T.copy()).to(dev)
+        pipe = bt.BsmrSddmm(csr, base, device=dev)
+        plan = bt.pack_tiles(csr, pipe.reorder(), base)
+        dp = device_plan(plan, dev, emit="rphm")
+        outs = {}
+        for serial, prec in SETTINGS + (("auto", "bf16x3"),):
+            cfg = base.replace(tier_serialize=serial, matmul_precision=prec)
+            tf32 = (serial, prec) == ("auto", "bf16x3")
+            run = (f"{name} tier_serialize={serial} matmul_precision={prec}"
+                   f"{' allow_tf32=True' if tf32 else ''}")
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                pipe.config = cfg
+                zero_launches()
+                log = pipe.benchmark(A, B, validate=True,
+                                     time_csr_emit=False, file=name)
+                launches = read_launches(results)
+                outs[run] = make_sddmm_body(plan, cfg, emit="rphm")(
+                    A_t, Bt_t, dp)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            overlap = not _serialize_tiers(plan, cfg)
+            say(f"[main] {run}: two streams replayed "
+                f"{overlap and _forks(cfg, True)}, eager "
+                f"{overlap and _forks(cfg, False)}; check "
+                f"{log.check_result} (error rate {log.error_rate}); "
+                f"sddmm_ms {log.sddmm_ms:.4f} ({log.gflops:.1f} GFLOPS), "
+                f"sddmm_eager_ms {log.extras['sddmm_eager_ms']}; launches "
+                f"{launches}")
+            if log.check_result != "pass":
+                failures.append(f"{run}: check {log.check_result}")
+            failures += [f"{run}: {kname} never launched" for kname in expect
+                         if launches[kname] <= 0]
+        runs = list(outs)
+        for label, one, other in (("on and off", runs[0], runs[1]),
+                                  ("allow_tf32 True and False", runs[3],
+                                   runs[1])):
+            equal = [torch.equal(x, y)
+                     for x, y in zip(outs[one], outs[other])]
+            say(f"[main] {name} rphm outputs of {label} bit-equal tier by "
+                f"tier (dense, packed, gathered, residual): {equal}")
+            if not all(equal):
+                failures.append(f"{name}: rphm outputs of {label} differ")
+        diff = max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(outs[runs[2]], outs[runs[1]])
+                   if x.numel())
+        say(f"[main] {name} one TF32 pass against three: max_abs "
+            f"{diff:.3e}")
+        failures += stream_arms(torch, f"{name} K=128", plan, base, A_t,
+                                Bt_t, dp, smi)
+    # the serialize side of "auto"
+    name, k, alpha, delta = SERIAL_CELL
+    csr = dict(datasets.SUITE)[name]()
+    cfg = bt.SddmmConfig(k=k, alpha=alpha, delta=delta, subpack_min_nnz=12)
+    plan = bt.pack_tiles(csr, bt.BsmrSddmm(csr, cfg, device=dev).reorder(),
+                         cfg, k=k)
+    serial = _serialize_tiers(plan, cfg)
+    say(f"[main] {name} K={k} alpha={alpha} delta={delta}: tiles dense "
+        f"{plan.num_tiles} packed {plan.num_packed} gathered "
+        f"{plan.num_gathered} residual nnz {plan.residual_nnz}; "
+        f"\"auto\" serializes: {serial}")
+    if not serial:
+        failures.append(f"{name} K={k}: \"auto\" does not serialize")
+    A_t = torch.from_numpy(bt.make_dense(csr.rows, k, seed=1337)).to(dev)
+    Bt_t = torch.from_numpy(bt.make_dense(k, csr.cols, seed=1338).T.copy()
+                            ).to(dev)
+    failures += stream_arms(torch, f"{name} K={k}", plan, cfg, A_t, Bt_t,
+                            device_plan(plan, dev, emit="rphm"), smi)
+    return failures
+
+
 PROFILE = (("bsr", dict(alpha=0.3, delta=0.002)),
            ("reorder", dict(alpha=0.3, delta=0.05, col_mode="reorder",
                             gathered_backend="fused")))
@@ -562,11 +768,34 @@ def kernel_rows(prof):
             and not e.key.startswith(("bsmr::", "Optimizer."))]
 
 
+def union_ms(prof) -> float:
+    """Milliseconds in which at least one device kernel of the trace runs
+    (the rows of kernel_rows, by their intervals): the busy time of a call
+    whose tiers overlap on two streams, where the sum of kernel times
+    counts the overlap twice."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith(("bsmr::", "Optimizer.")))
+    total, reach = 0.0, -math.inf
+    for start, end in spans:
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
 def profile_phase(torch, bt, dev, csr, busy_ms):
     """torch.profiler over PROFILE_CALLS calls of the rphm body on
-    banded_mesh_32k at K=128, bsr and reorder: device busy time, host
-    enqueue time and each device kernel's share per call, the busy time
-    into ``busy_ms[mode]``. Reports; fails only if the body does."""
+    banded_mesh_32k at K=128, bsr and reorder: device busy time (the sum
+    of kernel times and the union of their intervals), host enqueue time
+    and each device kernel's share per call, the busy union into
+    ``busy_ms[mode]``. The body runs at tier_serialize "off": its eager
+    calls fork as the replayed graph of [main]'s "auto" run does, so the
+    busy time is that of the headline's schedule. Reports; fails only if
+    the body does."""
     from torch.profiler import ProfilerActivity, profile
     from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, make_sddmm_body
     A = torch.from_numpy(bt.make_dense(csr.rows, 128, seed=1337)).to(dev)
@@ -576,7 +805,8 @@ def profile_phase(torch, bt, dev, csr, busy_ms):
         cfg = bt.SddmmConfig(k=128, subpack_min_nnz=12, **arm)
         plan = bt.pack_tiles(csr, bt.BsmrSddmm(csr, cfg).reorder(), cfg)
         dp = device_plan(plan, dev, emit="rphm")
-        body = make_sddmm_body(plan, cfg, emit="rphm")
+        body = make_sddmm_body(plan, cfg.replace(tier_serialize="off"),
+                               emit="rphm")
         for _ in range(PROFILE_CALLS):
             body(A, Bt, dp)
         torch.cuda.synchronize()
@@ -596,12 +826,14 @@ def profile_phase(torch, bt, dev, csr, busy_ms):
             say(f"[profile] banded_mesh_32k {mode}: no device time in the "
                 f"trace: not measured")
             continue
-        busy_ms[mode] = busy
-        say(f"[profile] banded_mesh_32k K=128 {mode} {arm}, per call over "
+        busy_ms[mode] = union_ms(prof) / PROFILE_CALLS
+        say(f"[profile] banded_mesh_32k K=128 {mode} {arm} "
+            f"tier_serialize=off, per call over "
             f"{PROFILE_CALLS} calls (profiler on): wall "
             f"{wall * 1e3 / PROFILE_CALLS:.4f} ms, host enqueue "
             f"{enqueue * 1e3 / PROFILE_CALLS:.4f} ms, device busy "
-            f"{busy:.4f} ms")
+            f"{busy_ms[mode]:.4f} ms (union of kernel intervals; sum of "
+            f"kernel times {busy:.4f} ms)")
         for key, ms in rows[:10]:
             say(f"[profile]   {ms:.4f} ms {ms / busy:5.1%}  {key[:100]}")
         gathers = sum(e.count for e in prof.key_averages()
@@ -912,6 +1144,8 @@ def calibrate_phase(torch, bt, dev, suite, smi, results, picks):
 ARMS = ("banded_mesh_32k", "community_20k")
 #: the refine probe's cell and the tier profile's matrix
 ARMS_REFINE, ARMS_PROFILE = "community_20k", "banded_mesh_32k"
+#: the refine probe's alphas: its grid less alpha 0.5, the slowest arms
+ARMS_REFINE_ALPHAS = (0.1, 0.3)
 
 
 def sweep_arms(dev, suite):
@@ -1075,7 +1309,8 @@ def arms_phase(torch, bt, dev, suite, smi, results):
     t = time.perf_counter()
     row = probe_refine_pick.probe_cell(
         ARMS_REFINE, suite[ARMS_REFINE], 128, dev,
-        echo=lambda m: say(f"[arms] refine probe {m}"))
+        echo=lambda m: say(f"[arms] refine probe {m}"),
+        alphas=ARMS_REFINE_ALPHAS)
     say(f"[arms] refine probe {ARMS_REFINE} K=128 ({smi}): sweep best "
         f"{row['sweep_best']}; host pick {row['host_pick']}; refined pick "
         f"{row['refined_pick']} ([arm, ms, fraction of best]; "
@@ -1138,21 +1373,22 @@ def dense_phase(bt, dev, results):
 
 
 #: the banded bsr run's sddmm_ms (a replayed CUDA graph) against the device
-#: busy time [profile] reads for the same body: a replay adds the gaps
+#: busy time [profile] reads for the same body (the union of its kernels'
+#: intervals: the tiers overlap on two streams): a replay adds the gaps
 #: between its ~10 kernels, which busy time leaves out
 HEADLINE_RTOL = 0.15
 
 
 def check_headline(picks, busy_ms) -> list:
     """[main]: the banded bsr run's sddmm_ms within HEADLINE_RTOL of
-    [profile]'s device busy for that body."""
+    [profile]'s device busy (union) for that body."""
     ms = picks["banded_mesh_32k"]["fixed arm"][3]
     busy = busy_ms.get("bsr")
     if busy is None:
         return ["headline: [profile] read no device time for the bsr body"]
     off = ms / busy - 1
     say(f"[main] banded_mesh_32k bsr: sddmm_ms {ms:.4f} against device busy "
-        f"{busy:.4f} ms ({off:+.1%}; limit {HEADLINE_RTOL:.0%})")
+        f"(union) {busy:.4f} ms ({off:+.1%}; limit {HEADLINE_RTOL:.0%})")
     if abs(off) > HEADLINE_RTOL:
         return [f"headline: sddmm_ms {ms:.4f} is {off:+.1%} off device busy "
                 f"{busy:.4f} ms"]
@@ -1177,6 +1413,8 @@ GRAD_RTOL, GRAD_ATOL_SCALE = 1e-3, 1e-4
 #: the graph transformer's descent check (its timed steps take the JAX
 #: package's default, 1e-3)
 GRAPH_SMALL_LR = 1e-5
+#: rounds of [train]'s step timing in turns
+STEP_ROUNDS = 5
 #: substrings of the hand kernels' device names
 HAND = ("bsr_resident_kernel", "bsr_stream_kernel", "subpack_kernel",
         "gathered_tile_kernel")
@@ -1455,7 +1693,43 @@ def train_phase(torch, bt, dev, csr, results, smi):
         failures.append(f"train graph: loss {loss}")
     failures += [f"train graph step: {k} never launched" for k in gwant
                  if launches[k] <= 0]
+    failures += step_streams(torch, gt, gmodel, csr, gcfg, dev, X, labels,
+                             smi)
     return failures
+
+
+def step_streams(torch, gt, gmodel, csr, gcfg, dev, X, labels, smi):
+    """The graph transformer's Adam step at tier_serialize "auto" (its
+    eager SDDMM calls on one stream) and "off" (each forked onto the side
+    stream), timed in turns: STEP_ROUNDS rounds of two steps, CUDA events;
+    the medians."""
+    import statistics
+    steps = {}
+    for mode in ("auto", "off"):
+        net, dplan, _ = gt.make_forward(gmodel, csr, config=gcfg.replace(
+            tier_serialize=mode), device=dev)
+        opt_init, step = gt.make_train_step(gmodel, net, GRAPH_SMALL_LR)
+        steps[mode] = (step, opt_init(), dplan)
+        step(steps[mode][1], X, labels, dplan)              # warm-up
+    ms = {mode: [] for mode in steps}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for r in range(STEP_ROUNDS):
+        for mode in (("auto", "off") if r % 2 else ("off", "auto")):
+            step, opt, dplan = steps[mode]
+            torch.cuda.synchronize()
+            start.record()
+            losses = [step(opt, X, labels, dplan) for _ in range(2)]
+            end.record()
+            end.synchronize()
+            ms[mode].append(start.elapsed_time(end) / 2)
+            if not all(math.isfinite(float(x)) for x in losses):
+                return [f"train graph step {mode}: losses {losses}"]
+    med = statistics.median
+    say(f"[train]   graph transformer Adam step, tier_serialize in turns "
+        f"({STEP_ROUNDS} rounds of 2 steps, CUDA events, medians): \"auto\" "
+        f"{med(ms['auto']):.3f} ms, \"off\" {med(ms['off']):.3f} ms; {smi}")
+    return []
 
 
 BATCH_Z = 4
@@ -2283,7 +2557,7 @@ def main() -> int:
     results = {name: dict(name=name, route="cuda", **meta, launches=0,
                           launches_per_call=0, max_abs_err=0.0, ms=None,
                           plain_ms=None, bound_ms=None, bound_by=None,
-                          library_ms=None)
+                          library_ms=None, one_pass=None)
                for name, meta in KERNELS.items()}
     dev = torch.device("cuda")
     failures = check_kernels(torch, bt, dev, suite["banded_mesh_32k"],
@@ -2294,6 +2568,8 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {failures}")
     picks = {}
     failures = main_path(bt, dev, suite, results, picks)
+    failures += timed("main settings", settings_path, torch, bt, dev, suite,
+                      results, smi)
     if failures:
         fail(f"main path: {failures}")
     busy_ms = {}

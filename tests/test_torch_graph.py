@@ -147,6 +147,43 @@ def test_spmm_rphm_matches_reference(delta):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_graph_ops_at_each_precision_match_reference(precision,
+                                                     monkeypatch):
+    """The SpMM and one attention head (its body at the same
+    matmul_precision) against the JAX ones at that precision, at the
+    check_data tolerance; the SpMMs' bmm take one TF32 pass only at
+    "default", and the caller's flag is put back."""
+    c = setup(delta=0.05)
+    d, pk, g, r = scores(c)
+    V = make_dense(c.csr.cols, 24, seed=99)
+    want = np.asarray(jax.jit(j_graph_rphm.make_spmm_rphm(
+        c.jplan, precision))(d, pk, g, r, jnp.asarray(V), c.jdplan))
+    flags = []
+    real_bmm = torch.bmm
+    monkeypatch.setattr(torch, "bmm", lambda a, b: flags.append(
+        torch.backends.cuda.matmul.allow_tf32) or real_bmm(a, b))
+    got = graph_rphm.make_spmm_rphm(c.plan, precision)(
+        t(d), t(pk), t(g), t(r), t(V), c.dplan).numpy()
+    assert flags and set(flags) == {precision == "default"}
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert check_data(want, got).passed
+    monkeypatch.setattr(torch, "bmm", real_bmm)
+    q, k, v = (make_dense(n, c.cfg.k, seed=s) for n, s in
+               ((c.csr.rows, 3), (c.csr.cols, 4), (c.csr.cols, 6)))
+    jcfg = c.jcfg.replace(matmul_precision=precision)
+    want = np.asarray(j_graph_rphm.make_sparse_attention_rphm(
+        c.jplan, jops.make_sddmm_body(c.jplan, jcfg, emit="rphm"),
+        precision)(*map(jnp.asarray, (q, k, v)), c.jdplan))
+    got = graph_rphm.make_sparse_attention_rphm(
+        c.plan, make_sddmm_body(
+            c.plan, c.cfg.replace(matmul_precision=precision), emit="rphm"),
+        precision)(t(q), t(k), t(v), c.dplan).numpy()
+    assert check_data(want, got).passed
+    with pytest.raises(ValueError, match="matmul_precision"):
+        graph_rphm.make_spmm_rphm(c.plan, "fp8")
+
+
 def test_fused_attention_head_matches_reference():
     c = setup()
     rng = np.random.default_rng(3)

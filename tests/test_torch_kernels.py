@@ -16,7 +16,12 @@ tolerance (each side rounds to fp16 once: at most one fp16 ulp, rel 2^-10 <
 the sum means nothing: those tests hold |kernel - plain| <= 1e-5 *
 (|A| . |B|^T) elementwise (plus one fp16 ulp of the plain value for fp16
 output). A kernel's result is the same from launch to launch (no atomics, a
-fixed order of summation): tested with torch.equal.
+fixed order of summation): tested with torch.equal. At one TF32 pass
+(``passes=1``, ``matmul_precision="default"``) the plain version is an fp32
+product of the operands rounded to TF32, whose products the MMA computes
+exactly: kernel and plain differ only in the order of summation, so the
+same tolerances hold; against the Pallas kernels at "default" the
+check_data tolerance.
 
 The tests marked ``cuda`` import nothing of JAX, so that they run on a
 machine without it: ``python -m pytest --noconftest -m cuda
@@ -33,8 +38,8 @@ from bsmr_sddmm_tpu_torch.formats import random_mask
 from bsmr_sddmm_tpu_torch.ops import _build
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
 from bsmr_sddmm_tpu_torch.ops import subpack_phases
-from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
-                                            sddmm_ref)
+from bsmr_sddmm_tpu_torch.ops.sddmm import (PRECISION, device_plan,
+                                            make_sddmm_body, sddmm_ref)
 from bsmr_sddmm_tpu_torch.utils.checkdata import check_data
 
 BW = 128
@@ -42,6 +47,7 @@ SMALL = dict(rows=512, cols=768, nnz=20000, seed=7, block_rows=24,
              block_cols=96)
 BASE_CFG = dict(k=32, panel_height=16, block_width=128, dense_chunk=64,
                 residual_chunk=4096)
+TIERS = ("dense", "packed", "gathered", "residual")
 
 
 @pytest.fixture
@@ -142,7 +148,7 @@ def assert_matches(ref, got, precision):
 # plain versions vs the Pallas kernels (CPU, interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("ph,k", [(16, 32), (32, 64)])
 @pytest.mark.parametrize("G", [2, 4])
 def test_bsr_dense_plain_matches_fat_kernel(precision, ph, k, G):
@@ -154,11 +160,12 @@ def test_bsr_dense_plain_matches_fat_kernel(precision, ph, k, G):
         interpret=True)(jnp.asarray(A_panels), jnp.asarray(Bt),
                         jnp.asarray(tile_panel), jnp.asarray(step_cblock))
     got = dk.bsr_dense_plain(*tensors(A_panels, Bt, tile_panel, step_cblock),
-                             fat_group=G, block_width=BW)
+                             fat_group=G, block_width=BW,
+                             passes=PRECISION[precision][0])
     assert_matches(ref, got.numpy(), precision)
 
 
-@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("ph,k", [(16, 32), (32, 64)])
 def test_bsr_dense_plain_matches_dense_kernel(precision, ph, k):
     jnp, pd = pallas()
@@ -169,11 +176,12 @@ def test_bsr_dense_plain_matches_dense_kernel(precision, ph, k):
         interpret=True)(jnp.asarray(A_panels), jnp.asarray(Bt),
                         jnp.asarray(tile_panel), jnp.asarray(tile_cblock))
     got = dk.bsr_dense_plain(*tensors(A_panels, Bt, tile_panel, tile_cblock),
-                             fat_group=1, block_width=BW)
+                             fat_group=1, block_width=BW,
+                             passes=PRECISION[precision][0])
     assert_matches(ref, got.numpy(), precision)
 
 
-@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("ph,k,sw", [(16, 32, 32), (32, 64, 32),
                                      (16, 32, 64)])
 def test_subpack_plain_matches_subpack_kernel(precision, ph, k, sw):
@@ -189,7 +197,8 @@ def test_subpack_plain_matches_subpack_kernel(precision, ph, k, sw):
         interpret=True)(jnp.asarray(A_panels), jnp.asarray(Bt2),
                         jnp.asarray(sp_panel), jnp.asarray(sp_sub))
     got = dk.subpack_plain(*tensors(A_panels, Bt, sp_colperm, sp_panel,
-                                    sp_sub), subblock_width=sw)
+                                    sp_sub), subblock_width=sw,
+                           passes=PRECISION[precision][0])
     assert_matches(ref, got.numpy(), precision)
 
 
@@ -211,7 +220,7 @@ def test_subpack_plain_reads_past_h_as_zero(sw, bw):
     assert not got[0, :, bw - sw + H % sw:].any() and got[0].any()
 
 
-@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("ph,k", [(16, 32), (32, 64)])
 def test_dense_tile_plain_matches_dense_tile_kernel(precision, ph, k):
     """make_dense_tile_kernel takes B tiles gathered outside the kernel, as
@@ -225,11 +234,12 @@ def test_dense_tile_plain_matches_dense_tile_kernel(precision, ph, k):
         num_panels=A_panels.shape[0], ph=ph, bw=BW, k=k, chunk=T,
         precision=precision, interpret=True)(
             jnp.asarray(A_panels), b_tiles, jnp.asarray(tile_panel))
-    got = dk.dense_tile_plain(*tensors(A_panels, Bt, tile_panel, tile_cols))
+    got = dk.dense_tile_plain(*tensors(A_panels, Bt, tile_panel, tile_cols),
+                              passes=PRECISION[precision][0])
     assert_matches(ref, got.numpy(), precision)
 
 
-@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("ph,k", [(16, 32), (32, 64)])
 def test_fused_gathered_plain_matches_fused_kernel(precision, ph, k):
     jnp, pd = pallas()
@@ -239,7 +249,8 @@ def test_fused_gathered_plain_matches_fused_kernel(precision, ph, k):
         precision=precision, interpret=True)(
             jnp.asarray(A_panels), jnp.asarray(Bt), jnp.asarray(g_panel),
             jnp.asarray(g_cols.reshape(-1)))
-    got = dk.fused_gathered_plain(*tensors(A_panels, Bt, g_panel, g_cols))
+    got = dk.fused_gathered_plain(*tensors(A_panels, Bt, g_panel, g_cols),
+                                  passes=PRECISION[precision][0])
     assert_matches(ref, got.numpy(), precision)
 
 
@@ -252,6 +263,46 @@ def test_gathered_plain_reads_out_of_range_ids_as_zero():
     want = np.einsum("tpk,tck->tpc", A_panels[panel], Bt_zero[ids])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     assert (got[0, :, 1] == 0).all() and (got[3, :, 5] == 0).all()
+
+
+def plain_case(name, signed, **kw):
+    """(plain version, its operands, its keywords) of one tile kernel at
+    the small shapes of the input functions above."""
+    if name.startswith("bsr_dense"):
+        G = int(name.split("G=")[1])
+        return (dk.bsr_dense_plain,
+                tensors(*bsr_inputs(G=G, signed=signed, **kw)),
+                dict(fat_group=G, block_width=BW))
+    if name == "subpack":
+        return (dk.subpack_plain,
+                tensors(*subpack_inputs(signed=signed, past_h=True, **kw)),
+                dict(subblock_width=32))
+    plain = dict(dense_tile=dk.dense_tile_plain,
+                 fused_gathered=dk.fused_gathered_plain)[name]
+    return plain, tensors(*gathered_inputs(signed=signed,
+                                           out_of_range=True, **kw)), {}
+
+
+PLAIN_CASES = ("bsr_dense G=1", "bsr_dense G=2", "subpack", "dense_tile",
+               "fused_gathered")
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("name", PLAIN_CASES)
+def test_one_pass_plain_is_fp32_product_of_hi_operands(name, signed):
+    """passes=1: the fp32 product of tf32_split's hi of both operands (what
+    one MMA pass computes, its products exact), not the fp32 product of
+    the operands themselves; within TF32 rounding of the fp64 product."""
+    plain, args, kw = plain_case(name, signed)
+    hi = [dk.tf32_split(args[0])[0], dk.tf32_split(args[1])[0]] + args[2:]
+    got = plain(*args, passes=1, **kw)
+    torch.testing.assert_close(got, plain(*hi, passes=3, **kw), rtol=1e-6,
+                               atol=0)
+    three = plain(*args, passes=3, **kw)
+    assert not torch.equal(got, three)
+    bound = plain(args[0].abs(), args[1].abs(), *args[2:], **kw).double()
+    assert ((got.double() - three.double()).abs()
+            <= 2.0 ** -10 * bound + 1e-6).all()
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +378,21 @@ def test_wrappers_reject_bad_inputs():
         dk.subpack(A, Bt, cp.long(), sp, ss, subblock_width=32)
     with pytest.raises(ValueError, match="on cpu"):
         dk.subpack(A, Bt.to("meta"), cp, sp, ss, subblock_width=32)
+
+
+@pytest.mark.parametrize("passes", [0, 2, 6])
+def test_wrappers_reject_a_pass_count_other_than_1_or_3(passes):
+    A, Bt, tp, sc = tensors(*bsr_inputs(G=2))
+    with pytest.raises(ValueError, match="passes must be 1 or 3"):
+        dk.bsr_dense(A, Bt, tp, sc, fat_group=2, block_width=BW,
+                     passes=passes)
+    A, Bt, cp, sp, ss = tensors(*subpack_inputs())
+    with pytest.raises(ValueError, match="passes must be 1 or 3"):
+        dk.subpack(A, Bt, cp, sp, ss, subblock_width=32, passes=passes)
+    A, Bt, panel, cols = tensors(*gathered_inputs())
+    for wrapper in (dk.dense_tile, dk.fused_gathered):
+        with pytest.raises(ValueError, match="passes must be 1 or 3"):
+            wrapper(A, Bt, panel, cols, passes=passes)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -405,6 +471,17 @@ def test_tile_work_fp16_halves_the_output_bytes():
     assert w16["out_bytes"] * 2 == w32["out_bytes"] == 9216 * 32 * 128 * 4
     assert w32["bytes"] - w16["bytes"] == w16["out_bytes"]
     assert w16["flops"] == w32["flops"] and w16["bound_ms"] < w32["bound_ms"]
+
+
+@pytest.mark.parametrize("row", sorted(WORK_TABLE))
+def test_tile_work_one_pass_is_a_third_of_the_operations(row):
+    (T, k, index_bytes), _ = WORK_TABLE[row]
+    kw = dict(a_rows=32768, b_rows=32768, index_bytes=index_bytes)
+    one = dk.tile_work(T, 32, 128, k, torch.float32, passes=1, **kw)
+    three = dk.tile_work(T, 32, 128, k, torch.float32, **kw)
+    assert one["ops_ms"] == pytest.approx(three["ops_ms"] / 3)
+    assert one["bytes"] == three["bytes"] and one["flops"] == three["flops"]
+    assert one["bound_ms"] == max(one["bytes_ms"], one["ops_ms"])
 
 
 @pytest.mark.parametrize("signed", [False, True])
@@ -885,3 +962,143 @@ def test_time_cuda_graph_times_the_call(cuda):
     ms_events, want = time_cuda(torch.mm, a, a, iterations=20)
     torch.testing.assert_close(out, want)
     assert 0.5 * ms_events < ms_graph < 2.0 * ms_events
+
+
+# ---------------------------------------------------------------------------
+# one TF32 pass, the two streams and the caller's TF32 flag (card only)
+# ---------------------------------------------------------------------------
+
+def card_case(name, k, device, signed=False):
+    """(kernel, plain, operands on ``device``, keywords) at the shapes of
+    the CUDA tests above: 64 tiles, ragged N, ids out of range."""
+    if name.startswith("bsr_dense"):
+        G = int(name.split("G=")[1])
+        return (dk.bsr_dense, dk.bsr_dense_plain,
+                tensors(*bsr_inputs(num_panels=40, ph=32, k=k, n_cols=1000,
+                                    T=64, G=G, signed=signed),
+                        device=device),
+                dict(fat_group=G, block_width=BW))
+    if name == "subpack":
+        return (dk.subpack, dk.subpack_plain,
+                tensors(*subpack_inputs(num_panels=40, ph=32, k=k, H=1000,
+                                        Tp=64, signed=signed, past_h=True),
+                        device=device), dict(subblock_width=32))
+    wrapper, plain = GATHERED[name]
+    return wrapper, plain, tensors(*gathered_inputs(
+        num_panels=40, ph=32, k=k, n_cols=1000, T=64, out_of_range=True,
+        signed=signed), device=device), {}
+
+
+CARD_CASES = ("bsr_dense G=32", "bsr_dense G=1", "subpack", "dense_tile",
+              "fused_gathered")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("k", [32, 128, 256])
+@pytest.mark.parametrize("name", CARD_CASES)
+def test_kernels_at_one_pass_match_plain(cuda, name, k, out_dtype):
+    """One TF32 pass on the reference's fills (K = 256 takes bsr_dense's
+    streaming route), and bit for bit from launch to launch."""
+    kern, plain, args, kw = card_case(name, k, cuda)
+    kw = dict(kw, out_dtype=out_dtype, passes=1)
+    before = kern.launches
+    got = kern(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert_kernel_close(got, want)
+    assert torch.equal(kern(*args, **kw), got)
+    # one pass is not the three-pass result
+    assert not torch.equal(kern(*args, **dict(kw, passes=3)), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 33, 256])
+@pytest.mark.parametrize("name", CARD_CASES)
+def test_kernel_edges_at_one_pass(cuda, name, k):
+    """Mixed signs, K with and without 16-byte rows: within 1e-5 *
+    (|A| . |B|^T) of the plain one-pass version."""
+    kern, plain, args, kw = card_case(name, k, cuda, signed=True)
+    kw = dict(kw, out_dtype=torch.float32, passes=1)
+    assert_within_products(kern(*args, **kw), plain, args, kw)
+
+
+def card_body_case(kind, **cfg_kw):
+    """(plan, config, A, Bt) of a small plan with all four tiers: the bsr
+    plan of ``small_plan`` or a reorder plan with the fused gathered
+    tier."""
+    csr = random_mask(**SMALL)
+    extra = (dict(delta=0.1, col_mode="reorder", gathered_backend="fused")
+             if kind == "reorder_fused" else {})
+    cfg = bt.SddmmConfig(**dict(BASE_CFG, **extra, **cfg_kw))
+    plan = bt.pack_tiles(csr, bt.BsmrSddmm(csr, cfg).reorder(), cfg)
+    assert plan.num_tiles and plan.num_packed and plan.num_gathered
+    assert plan.num_residual
+    A = torch.from_numpy(bt.make_dense(csr.rows, cfg.k, seed=5))
+    Bt = torch.from_numpy(bt.make_dense(csr.cols, cfg.k, seed=6))
+    return csr, plan, cfg, A, Bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("kind", ["bsr", "reorder_fused"])
+def test_two_streams_match_one_stream(cuda, kind, precision):
+    """tier_serialize "off" (the gathered tier and the residual on the
+    side stream) and "auto" (on it when captured) against "on", bit for
+    bit, tier by tier: eager, and each captured into a CUDA graph and
+    replayed; "off" forks every call, "auto" only the captured one."""
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda_graph
+    csr, plan, cfg, A, Bt = card_body_case(kind, matmul_precision=precision)
+    A, Bt = A.to(cuda), Bt.to(cuda)
+    dplan = device_plan(plan, cuda, emit="rphm")
+    bodies = {mode: make_sddmm_body(plan, cfg.replace(tier_serialize=mode),
+                                    emit="rphm")
+              for mode in ("on", "off", "auto")}
+    eager = {mode: body(A, Bt, dplan) for mode, body in bodies.items()}
+    assert {m: b.forks for m, b in bodies.items()} == {
+        "on": 0, "off": 1, "auto": 0}
+    # a warm-up call, then the captured one
+    replayed = {mode: time_cuda_graph(body, A, Bt, dplan, iterations=3)[1]
+                for mode, body in bodies.items()}
+    torch.cuda.synchronize()
+    assert {m: b.forks for m, b in bodies.items()} == {
+        "on": 0, "off": 3, "auto": 1}
+    for outs in (eager["off"], eager["auto"], replayed["on"],
+                 replayed["off"], replayed["auto"]):
+        for tier, got, want in zip(TIERS, outs, eager["on"]):
+            assert torch.equal(got, want), tier
+    csr_out = make_sddmm_body(plan, cfg.replace(tier_serialize="off"))(
+        A, Bt, device_plan(plan, cuda)).cpu().numpy()
+    assert check_data(sddmm_ref(A.cpu().numpy(), Bt.cpu().numpy().T, csr),
+                      csr_out).passed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bsr", "reorder_fused"])
+def test_caller_tf32_flag_moves_no_result(cuda, kind):
+    """A caller's allow_tf32 = True leaves a "bf16x3" call bit for bit as
+    it was, and is itself left as the caller set it; "default" runs one
+    TF32 pass and still passes check_data."""
+    csr, plan, cfg, A, Bt = card_body_case(kind)
+    A, Bt = A.to(cuda), Bt.to(cuda)
+    dplan = device_plan(plan, cuda)
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    try:
+        outs = {}
+        for tf32 in (False, True):
+            flags.allow_tf32 = tf32
+            outs[tf32] = make_sddmm_body(plan, cfg)(A, Bt, dplan)
+            assert flags.allow_tf32 == tf32
+        flags.allow_tf32 = False
+        one = make_sddmm_body(plan, cfg.replace(
+            matmul_precision="default"))(A, Bt, dplan)
+        assert flags.allow_tf32 is False
+    finally:
+        flags.allow_tf32 = before
+    assert torch.equal(outs[True], outs[False])
+    assert not torch.equal(one, outs[False])
+    ref = sddmm_ref(A.cpu().numpy(), Bt.cpu().numpy().T, csr)
+    for out in (outs[False], one):
+        assert check_data(ref, out.cpu().numpy()).passed

@@ -245,6 +245,38 @@ def test_sharded_csr_matches_oracle(case, b_sharded):
             assert getattr(p, name).shape == getattr(plans[0], name).shape
 
 
+@pytest.mark.parametrize("precision,serialize", [("default", "off"),
+                                                  ("bf16x3", "on")])
+def test_sharded_sddmm_reads_both_settings(precision, serialize,
+                                           monkeypatch):
+    """The sharded body is make_sddmm_body of the config it is given, so
+    it takes matmul_precision and tier_serialize as the single-device body
+    does: tier by tier against the JAX sharded SDDMM at that precision, at
+    the check_data tolerance."""
+    from bsmr_sddmm_tpu_torch.parallel import sharding
+    (jcsr, jre, jcfg), (tcsr, tre, tcfg), n = both_cases("blocks")
+    jcfg = JConfig(**dict(SHARD_CASES["blocks"][2],
+                          matmul_precision=precision))
+    tcfg = tcfg.replace(matmul_precision=precision, tier_serialize=serialize)
+    A, Bt = operands(tcsr, tcfg.k)
+    ref, _ = jax_sharded_tiers(jcsr, jre, jcfg, n, A, Bt, False)
+    built = []
+    monkeypatch.setattr(sharding, "make_sddmm_body",
+                        lambda plan, cfg, *a, **kw: built.append(cfg)
+                        or make_sddmm_body(plan, cfg, *a, **kw))
+    mesh = cpu_mesh(n)
+    fn, dplan, plans = tpar.make_sharded_sddmm(tcsr, tre, tcfg, mesh,
+                                               emit="rphm")
+    assert built == [tcfg]
+    got = fn(*tpar.shard_operands(A, Bt, mesh), dplan)
+    nnz = tcsr.nnz
+    for tier, r, g, name in zip(TIERS, ref, got, (
+            "tile_scatter", "sp_scatter", "g_scatter", "res_out")):
+        real = np.concatenate([getattr(p, name) for p in plans]) < nnz
+        res = check_data(r[real], torch.cat(g).numpy()[real])
+        assert res.passed, f"{tier}: {res}"
+
+
 def test_sharded_shard_operands_divisibility():
     mesh = cpu_mesh(8)
     A = np.zeros((16, 8), np.float32)

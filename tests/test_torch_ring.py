@@ -182,6 +182,32 @@ def test_ring_csr_matches_oracle(case):
     assert res.passed, f"error rate {res.error_rate}"
 
 
+@pytest.mark.parametrize("case", ["banded_2", "hub_4"])
+def test_ring_at_default_precision_matches_reference(case):
+    """matmul_precision="default": the port's ring (one TF32 pass in its
+    tile kernels' plain versions) against the JAX ring at the same setting
+    and the fp64 oracle, at the check_data tolerance; not the three-pass
+    output."""
+    (jcsr, jre, jcfg), (tcsr, tre, tcfg), n = ring_case(case)
+    jcfg = JConfig(**dict(RING_CASES[case][1], matmul_precision="default"))
+    tcfg = tcfg.replace(matmul_precision="default")
+    A = tfm.make_dense(tcsr.rows, tcfg.k, seed=1)
+    Bt = tfm.make_dense(tcsr.cols, tcfg.k, seed=2)
+    jmesh = j_make_mesh(n)
+    jfn, jplan = jring.make_ring_sddmm(jcsr, jre, jcfg, jmesh)
+    ref = np.asarray(jfn(*jring.ring_operands(A, Bt, jplan, jmesh)))
+    mesh = make_mesh(devices=["cpu"] * n)
+    outs = {}
+    for cfg in (tcfg, tcfg.replace(matmul_precision="bf16x3")):
+        fn, plan = tring.make_ring_sddmm(tcsr, tre, cfg, mesh)
+        outs[cfg.matmul_precision] = fn(
+            *tring.ring_operands(A, Bt, plan, mesh)).numpy()
+    got = outs["default"]
+    assert check_data(ref, got).passed
+    assert check_data(sddmm_ref(A, Bt.T, tcsr), got).passed
+    assert not np.array_equal(got, outs["bf16x3"])
+
+
 def test_ring_plain_backend_equals_auto_on_cpu():
     """backend="torch" runs the plain versions everywhere; on CPU tensors
     "auto" runs them too, so both give the same values."""

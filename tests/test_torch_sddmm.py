@@ -10,9 +10,15 @@ differ only in the order of summation, so the fused cases run the Pallas
 kernel at ``matmul_precision="highest"``; at its default bf16x3 split they
 are compared at the check_data tolerance (abs 1e-5 OR rel 1e-3). fp16
 output is compared at the check_data tolerance (each side rounds once to
-fp16). Then the whole slice: BsmrSddmm.benchmark (``tier_times``
-included), sddmm() and the CLI (``--col-mode reorder``, ``--evaluate``,
-``--tier-times``, ``--reorder-cache``). The body on the card is tested in
+fp16). Each ``matmul_precision`` is held to the JAX body at the same
+setting at the check_data tolerance ("default": the port's one TF32 pass
+against the JAX CPU's fp32), and ``_serialize_tiers`` to the JAX
+function on the same plan and cost table; the bodies at each
+``tier_serialize`` are bit-identical (on the CPU they all run one stream:
+the two streams are tested on the card), and which calls fork. Then the whole slice:
+BsmrSddmm.benchmark (``tier_times`` included), sddmm() and the CLI
+(``--col-mode reorder``, ``--evaluate``, ``--tier-times``,
+``--reorder-cache``). The body on the card is tested in
 tests/test_torch_kernels.py."""
 
 import jax.numpy as jnp
@@ -33,6 +39,7 @@ import bsmr_sddmm_tpu_torch as bt
 from bsmr_sddmm_tpu_torch import cli
 from bsmr_sddmm_tpu_torch.formats import random_mask, save_mtx
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+from bsmr_sddmm_tpu_torch.ops import sddmm as tops
 from bsmr_sddmm_tpu_torch.interop import (config_from_reference,
                                           plan_from_reference)
 from bsmr_sddmm_tpu_torch.ops.sddmm import (device_plan, make_sddmm_body,
@@ -231,6 +238,124 @@ def test_only_tier_and_backends_agree(case):
         one = make_sddmm_body(tplan, tcfg, only_tier=tier)(A, Bt, dplan)
         torch.testing.assert_close(one, f, rtol=0, atol=0)
         torch.testing.assert_close(p, f, rtol=0, atol=0)
+
+
+#: plans for the tier_serialize rule: windowed with the residual priced
+#: above 0.45 of the call ("auto" serializes), the same mask unwindowed
+#: (a small gather footprint), and a small plan
+SERIALIZE_PLANS = {
+    "windowed_residual": (WIDE, dict(WIDE_CFG, delta=1.1)),
+    "unwindowed": (WIDE, dict(WIDE_CFG, gather_window_mb=0)),
+    "small": (SMALL, BASE_CFG),
+}
+
+
+@pytest.mark.parametrize("mode", ["auto", "on", "off", True, False])
+@pytest.mark.parametrize("case", sorted(SERIALIZE_PLANS))
+def test_serialize_tiers_matches_reference(case, mode):
+    spec, cfg_kw = SERIALIZE_PLANS[case]
+    _, jcfg, jplan, tcfg, tplan = reference_case(
+        spec, dict(cfg_kw, tier_serialize=mode))
+    got = tops._serialize_tiers(tplan, tcfg)
+    assert got == jops._serialize_tiers(jplan, jcfg)
+    if mode == "auto":
+        assert got == (case == "windowed_residual")
+        assert (tplan.window_rows is not None) == got
+    else:
+        assert got == (mode in ("on", True))
+
+
+@pytest.mark.parametrize("case", ["default", "windowed", "reorder_fused"])
+def test_tier_serialize_arms_are_bit_identical(case):
+    """tests/test_sddmm.py::test_tier_serialize_matches_default, mirrored:
+    the arm is scheduling only, the values are the same bit for bit."""
+    spec, cfg_kw = body_cfg(case)
+    _, _, _, tcfg, tplan = reference_case(spec, cfg_kw)
+    A, Bt = operands(spec["rows"], spec["cols"], tcfg.k)
+    A, Bt = torch.from_numpy(A), torch.from_numpy(Bt)
+    dplan = device_plan(tplan, "cpu", emit="rphm")
+    bodies = [make_sddmm_body(tplan, tcfg.replace(tier_serialize=mode),
+                              emit="rphm") for mode in ("auto", "on", "off")]
+    outs = [body(A, Bt, dplan) for body in bodies]
+    for other in outs[1:]:
+        for tier, a, b in zip(TIERS, outs[0], other):
+            assert torch.equal(a, b), tier
+    assert [body.forks for body in bodies] == [0, 0, 0]   # CPU tensors
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+@pytest.mark.parametrize("mode", ["auto", "off", False])
+def test_overlapping_calls_fork_eagerly_only_when_asked(mode, capturing):
+    """Where _serialize_tiers lets the tiers overlap, "off" forks every
+    call and "auto" only a call captured into a CUDA graph."""
+    cfg = bt.SddmmConfig(tier_serialize=mode)
+    assert tops._forks(cfg, capturing) == (mode != "auto" or capturing)
+
+
+@pytest.mark.parametrize("precision", ["default", "bf16x3", "high",
+                                       "highest"])
+@pytest.mark.parametrize("case", ["default", "reorder", "fused",
+                                  "reorder_fused"])
+def test_each_matmul_precision_matches_reference(case, precision):
+    """Every tier (real slots) and the CSR output against the JAX body at
+    the same matmul_precision (its fused arm the Pallas kernel in interpret
+    mode), at the check_data tolerance; each passes the fp64 oracle."""
+    spec, cfg_kw = body_cfg(case)
+    cfg_kw = dict(cfg_kw, matmul_precision=precision)
+    jcsr, jcfg, jplan, tcfg, tplan = reference_case(spec, cfg_kw)
+    A, Bt = operands(spec["rows"], spec["cols"], tcfg.k)
+    ref = jax_body(jplan, jcfg, A, Bt, "rphm")
+    got = make_sddmm_body(tplan, tcfg, emit="rphm")(
+        torch.from_numpy(A), torch.from_numpy(Bt),
+        device_plan(tplan, "cpu", emit="rphm"))
+    for tier, r, g in zip(TIERS, ref, got):
+        real = real_slots(tplan, tier)
+        res = check_data(r[real], g.numpy()[real])
+        assert res.passed, f"{tier}: {res}"
+    got_csr = make_sddmm_body(tplan, tcfg)(
+        torch.from_numpy(A), torch.from_numpy(Bt),
+        device_plan(tplan, "cpu")).numpy()
+    assert check_data(jax_body(jplan, jcfg, A, Bt, "csr"), got_csr).passed
+    assert check_data(sddmm_ref(A, Bt.T, jcsr), got_csr).passed
+    # one pass reaches the tile tiers; the three-pass settings agree
+    three = make_sddmm_body(tplan, tcfg.replace(matmul_precision="high"))(
+        torch.from_numpy(A), torch.from_numpy(Bt),
+        device_plan(tplan, "cpu")).numpy()
+    assert np.array_equal(got_csr, three) == (precision != "default")
+
+
+@pytest.mark.parametrize("precision", ["default", "bf16x3"])
+def test_body_sets_the_torch_tiers_tf32_flag(precision, monkeypatch):
+    """The unfused gathered tier's bmm runs with allow_tf32 as the config
+    says (fault 3: not as the caller set it); the plain kernel versions'
+    bmm always with it off; the caller's flag is put back."""
+    spec, cfg_kw = body_cfg("default")
+    _, _, _, tcfg, tplan = reference_case(
+        spec, dict(cfg_kw, matmul_precision=precision))
+    assert tplan.num_gathered and tcfg.gathered_backend == "xla"
+    # the gathered tier's bmm is told apart by its batch, Tg tiles
+    Tg = tplan.g_panel.shape[0]
+    assert Tg not in (tplan.tile_panel.shape[0], tplan.sp_panel.shape[0])
+    seen = []
+    real_bmm = torch.bmm
+
+    def bmm(a, b):
+        seen.append((a.shape[0], torch.backends.cuda.matmul.allow_tf32))
+        return real_bmm(a, b)
+
+    monkeypatch.setattr(torch, "bmm", bmm)
+    A, Bt = operands(spec["rows"], spec["cols"], tcfg.k)
+    for caller in (False, True):
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", caller)
+        seen.clear()
+        make_sddmm_body(tplan, tcfg, emit="rphm")(
+            torch.from_numpy(A), torch.from_numpy(Bt),
+            device_plan(tplan, "cpu", emit="rphm"))
+        assert torch.backends.cuda.matmul.allow_tf32 is caller
+        gathered = [flag for n, flag in seen if n == Tg]
+        kernels = [flag for n, flag in seen if n != Tg]
+        assert gathered == [precision == "default"]
+        assert kernels and not any(kernels)
 
 
 def test_light_device_plan_leaves_maps_empty():

@@ -482,6 +482,22 @@ def test_probe_refine_pick_cpu(monkeypatch, tmp_path):
     assert row["host_pick"][0] == row["refined_pick"][0]
 
 
+def test_probe_refine_pick_on_fewer_alphas_cpu(monkeypatch, tmp_path):
+    """probe_cell(alphas=...) sweeps and picks over those alphas only."""
+    monkeypatch.setenv("BSMR_CACHE_DIR", str(tmp_path))
+    csr = tds.community(1024, 12000, 8, seed=47)
+    lines = []
+    row = probe_refine_pick.probe_cell("community_20k", csr, 32, "cpu",
+                                       iterations=1, echo=lines.append,
+                                       alphas=(0.1, 0.3))
+    assert len(lines) == 2 * len(probe_refine_pick.DELTAS) * len(
+        probe_refine_pick.SUBS)
+    assert all(" a=0.5 " not in line for line in lines)
+    for pick in ("host_pick", "refined_pick"):
+        assert row[pick][0][0] in (0.1, 0.3)
+        assert 0 < row[pick][2] <= 1.0
+
+
 def test_profile_tiers_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setenv("BSMR_CACHE_DIR", str(tmp_path))
     monkeypatch.setattr(tds, "SUITE", _two_small(tds))
