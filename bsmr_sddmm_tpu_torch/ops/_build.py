@@ -12,7 +12,8 @@ and one more links the objects:
 The library lands in ``build/torch_kernels/<hash of sources + flags>/`` at
 the root of the checkout (``BSMR_TORCH_KERNEL_DIR`` overrides the parent
 directory) and is reused while the sources are unchanged. Nothing here
-falls back: a missing ``nvcc`` or a failed compile raises.
+falls back: a missing ``nvcc`` or a failed compile raises. The build or
+load is recorded as the span ``kernels.load``; ``build_info`` says which.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import subprocess
 import threading
 import time
 from typing import Optional
+
+from bsmr_sddmm_tpu_torch.utils.profiling import span
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -127,18 +130,24 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not os.path.exists(path):
-            _compile(path)
-        else:
-            build_info.update(compiled=False, seconds=0.0, report="")
-        lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bsmr_bsr_dense.restype = i
-        lib.bsmr_bsr_dense.argtypes = [p] * 5 + [i] * 8 + [p]
-        bind_subpack(lib)
-        lib.bsmr_gathered_tile.restype = i
-        lib.bsmr_gathered_tile.argtypes = [p] * 5 + [i] * 7 + [p]
-        build_info["path"] = path
-        _lib = lib
+        with span("kernels.load"):
+            _lib = _load()
         return _lib
+
+
+def _load() -> ctypes.CDLL:
+    """Build the kernel library where it is not there, load and bind it."""
+    path = library_path()
+    if not os.path.exists(path):
+        _compile(path)
+    else:
+        build_info.update(compiled=False, seconds=0.0, report="")
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bsmr_bsr_dense.restype = i
+    lib.bsmr_bsr_dense.argtypes = [p] * 5 + [i] * 8 + [p]
+    bind_subpack(lib)
+    lib.bsmr_gathered_tile.restype = i
+    lib.bsmr_gathered_tile.argtypes = [p] * 5 + [i] * 7 + [p]
+    build_info["path"] = path
+    return lib

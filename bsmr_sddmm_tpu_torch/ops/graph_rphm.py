@@ -38,11 +38,11 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
 from bsmr_sddmm_tpu_torch.ops.sddmm import DevicePlan, precision_of
 from bsmr_sddmm_tpu_torch.pack import TilePlan
+from bsmr_sddmm_tpu_torch.utils.profiling import body_span
 
 _NEG = -1e30  # mask value; avoids inf - inf NaNs in empty rows
 
@@ -272,7 +272,7 @@ class _Spmm(torch.autograd.Function):
     def backward(ctx, d_out):
         *vals, V = ctx.saved_tensors
         grads = [None] * 5
-        with record_function("bsmr::spmm_backward"):
+        with body_span("spmm_backward"):
             if any(ctx.needs_input_grad[:4]):
                 for i, (g, x) in enumerate(zip(
                         ctx.sampled(d_out, V, ctx.dplan), vals)):
@@ -369,7 +369,7 @@ class _DiffSddmm(torch.autograd.Function):
     def forward(ctx, A, Bt, dplan, body, spmm, spmm_t):
         ctx.save_for_backward(A, Bt)
         ctx.dplan, ctx.spmm, ctx.spmm_t = dplan, spmm, spmm_t
-        with record_function("bsmr::sddmm_body"):
+        with body_span("sddmm_body"):
             return tuple(body(A, Bt, dplan))
 
     @staticmethod
@@ -377,7 +377,7 @@ class _DiffSddmm(torch.autograd.Function):
         A, Bt = ctx.saved_tensors
         grads = (d_dense, d_pk, d_gath, d_res)
         dA = dBt = None
-        with record_function("bsmr::spmm_backward"):
+        with body_span("spmm_backward"):
             if ctx.needs_input_grad[0]:
                 dA = ctx.spmm(*grads, Bt, ctx.dplan).to(A.dtype)
             if ctx.needs_input_grad[1]:

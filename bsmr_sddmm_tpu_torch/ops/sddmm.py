@@ -53,10 +53,22 @@ those plans run by absolute index, which gives the same values. Padded tail
 slots are computed from valid pad indices; no slot past a tier's real count
 is ever read by ``rphm_to_csr``. ``make_batched_sddmm_fn`` runs one plan over
 a leading batch dimension.
+
+Observability (``utils.profiling``): building a body records the counters
+``body.nnz`` and ``body.slots.{dense,packed,gathered,residual}`` (each
+tier's padded output slots: ``T·ph·bw``, ``Tp·ph·bw``, ``Tg·ph·bw``,
+``E``); ``device_plan`` is the span ``prep.upload`` with the counter
+``plan.device_bytes``. While ``profiling.record`` is on, a call is the
+span ``call`` with the children ``body.row_gather``, ``body.dense``,
+``body.packed``, ``body.gathered``, ``body.residual`` and ``body.emit``,
+each also a pair of timing events on the stream it runs on (in a captured
+graph, event record nodes that every replay records again). Off, a call
+tests one flag and a capture holds no event.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -67,6 +79,7 @@ from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import CSR
 from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
 from bsmr_sddmm_tpu_torch.pack import TilePlan
+from bsmr_sddmm_tpu_torch.utils import profiling
 
 
 class DevicePlan(NamedTuple):
@@ -180,24 +193,30 @@ def device_plan(plan: TilePlan, device, emit: str = "csr") -> DevicePlan:
     def maps(arr, shape=(0,)):
         return up(None) if light else up(arr, shape)
 
-    return DevicePlan(
-        row_perm_padded=up(plan.row_perm_padded),
-        tile_panel=up(plan.tile_panel),
-        tile_src=up(tile_src),
-        tile_scatter=maps(plan.tile_scatter),
-        sp_panel=up(plan.sp_panel),
-        sp_sub=up(plan.sp_sub, (0, 1)),
-        sp_scatter=maps(plan.sp_scatter,
-                        (0, plan.panel_height, plan.block_width)),
-        sp_colperm=up(plan.sp_colperm),
-        g_panel=up(plan.g_panel),
-        g_cols=up(plan.g_cols),
-        g_scatter=maps(plan.g_scatter),
-        res_arow=up(plan.res_arow),
-        res_col=up(plan.res_col),
-        res_out=maps(plan.res_out),
-        rphm_to_csr=maps(plan.rphm_to_csr),
-    )
+    with profiling.span("prep.upload"):
+        dplan = DevicePlan(
+            row_perm_padded=up(plan.row_perm_padded),
+            tile_panel=up(plan.tile_panel),
+            tile_src=up(tile_src),
+            tile_scatter=maps(plan.tile_scatter),
+            sp_panel=up(plan.sp_panel),
+            sp_sub=up(plan.sp_sub, (0, 1)),
+            sp_scatter=maps(plan.sp_scatter,
+                            (0, plan.panel_height, plan.block_width)),
+            sp_colperm=up(plan.sp_colperm),
+            g_panel=up(plan.g_panel),
+            g_cols=up(plan.g_cols),
+            g_scatter=maps(plan.g_scatter),
+            res_arow=up(plan.res_arow),
+            res_col=up(plan.res_col),
+            res_out=maps(plan.res_out),
+            rphm_to_csr=maps(plan.rphm_to_csr),
+        )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # the span ends with the copies
+    profiling.count("plan.device_bytes",
+                    sum(t.numel() * t.element_size() for t in dplan))
+    return dplan
 
 
 def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
@@ -303,33 +322,15 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
             parts.append((a * b).sum(-1).to(out_dt))
         return _joined(parts, (0,), A_perm, out_dt)
 
-    def two_streams(A_perm, A_panels, Bt, dplan):
-        """The four tiers, the gathered tier and the residual computed on
-        the side stream. Their outputs are allocated there and read on the
-        current stream, so the allocator is told (record_stream); the
-        operands the side stream reads stay referenced here until the
+    def tiers_of(A, Bt, dplan, tier):
+        """The four tiers, each computed inside ``tier(<name>)``. When the
+        call forks, the gathered tier and the residual run on the side
+        stream; the operands it reads stay referenced here until the
         join."""
-        fn.forks += 1
-        device = A_perm.device
-        if device not in side_streams:
-            side_streams[device] = torch.cuda.Stream(device)
-        side = side_streams[device]
-        main = torch.cuda.current_stream(device)
-        side.wait_stream(main)                  # fork after A_perm
-        dense = dense_out(A_panels, Bt, dplan)
-        packed = packed_out(A_panels, Bt, dplan)
-        with torch.cuda.stream(side):
-            gathered = gathered_out(A_panels, Bt, dplan)
-            res = residual_out(A_perm, Bt, dplan)
-        main.wait_stream(side)                  # join before emit
-        gathered.record_stream(main)
-        res.record_stream(main)
-        return dense, packed, gathered, res
-
-    def tiers_of(A, Bt, dplan):
-        A = A.to(torch.float32)
-        Bt = Bt.to(torch.float32).contiguous()
-        A_perm = A.index_select(0, dplan.row_perm_padded)     # (P*ph, K)
+        with tier("row_gather"):
+            A = A.to(torch.float32)
+            Bt = Bt.to(torch.float32).contiguous()
+            A_perm = A.index_select(0, dplan.row_perm_padded)  # (P*ph, K)
         A_panels = A_perm.reshape(num_panels, ph, k)
         if only_tier == "dense":
             return dense_out(A_panels, Bt, dplan)
@@ -339,17 +340,49 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
             return gathered_out(A_panels, Bt, dplan)
         if only_tier == "residual":
             return residual_out(A_perm, Bt, dplan)
-        if (A_perm.is_cuda and not serialize and side_work and _forks(
-                config, torch.cuda.is_current_stream_capturing())):
-            return two_streams(A_perm, A_panels, Bt, dplan)
-        return (dense_out(A_panels, Bt, dplan),
-                packed_out(A_panels, Bt, dplan),
-                gathered_out(A_panels, Bt, dplan),
-                residual_out(A_perm, Bt, dplan))
+        forked = (A_perm.is_cuda and not serialize and side_work and _forks(
+            config, torch.cuda.is_current_stream_capturing()))
+        if forked:
+            fn.forks += 1
+            device = A_perm.device
+            if device not in side_streams:
+                side_streams[device] = torch.cuda.Stream(device)
+            side = side_streams[device]
+            main = torch.cuda.current_stream(device)
+            side.wait_stream(main)                  # fork after A_perm
+        with tier("dense"):
+            dense = dense_out(A_panels, Bt, dplan)
+        with tier("packed"):
+            packed = packed_out(A_panels, Bt, dplan)
+        with (torch.cuda.stream(side) if forked
+              else contextlib.nullcontext()):
+            with tier("gathered"):
+                gathered = gathered_out(A_panels, Bt, dplan)
+            with tier("residual"):
+                res = residual_out(A_perm, Bt, dplan)
+        if forked:
+            # join before emit; the side stream's outputs are allocated
+            # there and read on the current stream, so the allocator is
+            # told (record_stream)
+            main.wait_stream(side)
+            gathered.record_stream(main)
+            res.record_stream(main)
+        return dense, packed, gathered, res
 
     def fn(A: torch.Tensor, Bt: torch.Tensor, dplan: DevicePlan):
+        if profiling.RECORDING and only_tier is None:
+            with profiling.body_call(A.device if A.is_cuda else None) as rec:
+                return run(A, Bt, dplan, rec.tier)
+        return run(A, Bt, dplan, profiling.no_span)
+
+    def run(A, Bt, dplan, tier):
         with dk.tf32_matmuls(allow_tf32):
-            tiers = tiers_of(A, Bt, dplan)
+            tiers = tiers_of(A, Bt, dplan, tier)
+        with tier("emit"):
+            return emitted(tiers, dplan)
+
+    def emitted(tiers, dplan):
+        """The output of ``emit`` (or the tiers as they are)."""
         if only_tier is not None or emit == "rphm":
             return tiers
         if emit == "csr":
@@ -368,6 +401,12 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
         return out
 
     fn.forks = 0
+    profiling.watch_body(fn)
+    for tier, slots in (("dense", plan.tile_panel.shape[0] * ph * bw),
+                        ("packed", Tp * ph * bw), ("gathered", Tg * ph * bw),
+                        ("residual", E)):
+        profiling.count(f"body.slots.{tier}", slots)
+    profiling.count("body.nnz", nnz)
     return fn
 
 

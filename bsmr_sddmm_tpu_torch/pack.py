@@ -38,6 +38,7 @@ import numpy as np
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import CSR
 from bsmr_sddmm_tpu_torch.reorder import BsmrReordering, _concat_ranges
+from bsmr_sddmm_tpu_torch.utils import profiling
 
 
 def bucket_size(n: int, enabled: bool = True, granule: int = 8) -> int:
@@ -214,9 +215,26 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
     sparse COO, BSMR.cpp:176-219) as one vectorized dense-membership join:
     every CSR entry looks up (panel, col) in the panel's dense column list;
     hits land in ``tile_scatter``, misses become residual entries.
+
+    Recorded as the span ``prep.pack`` with one child per phase:
+    ``.join`` (entries in reordered order, the dense membership join),
+    ``.layout`` (tile order and fat steps), ``.scatter`` (the dense scatter
+    map and the inverse map), ``.packed`` (the residual's entries and the
+    hot-column packed tier), ``.gathered`` (gathered tiles and the
+    per-nonzero tail), ``.windows`` (gather windows and the residual's
+    inverse map) and ``.rows`` (the padded row permutation and the plan);
+    ``pack_time_ms`` is the span's duration.
     """
-    import time as _time
-    t0 = _time.perf_counter()
+    with profiling.span("prep.pack") as prep:
+        plan = _pack_tiles(csr, reord, config, k, fat_group_override, prep)
+    plan.pack_time_ms = prep.duration_ms
+    return plan
+
+
+def _pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
+                k: Optional[int], fat_group_override: Optional[int],
+                prep: profiling.Span) -> TilePlan:
+    prep.phase("join")
     if reord.dense_cols is None:
         raise ValueError("run the column split (split_columns) first")
     k = config.k if k is None else k
@@ -257,6 +275,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
         is_dense = np.zeros(entry_keys.shape[0], dtype=bool)
 
     # --- dense tile layout: ordering + fat steps BEFORE the map -----------
+    prep.phase("layout")
     # The final tile layout — the (cblock, panel) sort that lets
     # consecutive tiles reuse one B block, plus fat-step run padding — is
     # computed
@@ -357,6 +376,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
         final_of_orig = np.arange(num_tiles0, dtype=np.int64)
 
     # --- dense scatter map + inverse map, one pass -------------------------
+    prep.phase("scatter")
     # rphm_to_csr (rphm layout -> CSR order) is built tier by tier from
     # each entry's destination slot as it scatters; the executed layout is
     # [dense BSR tiles | packed sub-block tiles | gathered tiles |
@@ -380,6 +400,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
                                 + local_col).astype(np.int32)
 
     # --- residual: gathered tiles + per-nnz tail ---------------------------
+    prep.phase("packed")
     # Residual entries are split a second time (the CUDA original has no
     # analogue): per panel, residual columns are sorted by in-panel count
     # descending and packed into bw-wide *gathered* tiles as long as a tile
@@ -518,6 +539,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
     g_scatter = np.zeros((0, ph, bw), np.int32)
     in_gathered = np.zeros(r_panel.shape[0], dtype=bool)
 
+    prep.phase("gathered")
     # B-gather windowing (the JAX package's gather cliff): decide the window size
     # up front — gathered tiles must be *window-pure* (every column of a
     # tile inside one window) so execution can gather from a static slice.
@@ -647,6 +669,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
         res_out[:num_residual0] = r_csr[tail].astype(np.int32)
 
     # --- gather windowing: group metadata ------------------------------------
+    prep.phase("windows")
     # Sort real gathered tiles by column window and record static
     # (base, start, end) groups; execution gathers each group from the
     # window slice Bt[base : base + window_rows]. The per-nnz tail windows
@@ -716,6 +739,7 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
             _res_base + np.arange(num_residual0)).astype(np.int32)
 
     # --- padded row permutation --------------------------------------------
+    prep.phase("rows")
     row_perm_padded = np.zeros(num_panels * ph, dtype=np.int32)
     row_perm_padded[:R] = perm
 
@@ -743,7 +767,6 @@ def pack_tiles(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
         window_rows=window_rows, a_window_rows=a_window_rows,
         g_groups=g_groups, res_groups=res_groups,
     )
-    plan.pack_time_ms = (_time.perf_counter() - t0) * 1e3
     return plan
 
 

@@ -30,12 +30,15 @@ Clustering is a host-side algorithm with two strategies: ``exact``
 (static-representative greedy: identical except the representative encoding
 does not accumulate members — one exact vectorized Jaccard sweep per
 cluster).
+
+Both stages are recorded as spans (``utils.profiling``): ``prep.cluster``
+with a child per phase, and ``prep.split``; ``row_time_ms`` and
+``col_time_ms`` are their durations.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -43,6 +46,7 @@ import scipy.sparse as sp
 
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import CSR
+from bsmr_sddmm_tpu_torch.utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -261,19 +265,32 @@ def row_reordering(csr: CSR, alpha: float, config: SddmmConfig
     """Full row-reordering driver (reference bsa_rowReordering_gpu,
     rowReordering.cu:1027-1095): encode rows, score dispersion, sort
     ascending, cluster greedily, emit a permutation ordered by cluster id
-    with empty rows dropped (rowReordering.cu:986-996, 1081-1090)."""
-    t0 = time.perf_counter()
+    with empty rows dropped (rowReordering.cu:986-996, 1081-1090).
+
+    Recorded as the span ``prep.cluster`` with the phases ``.encode``,
+    ``.dispersion``, ``.sort`` and ``.greedy`` (the clustering and the
+    permutation by cluster); ``row_time_ms`` is the span's duration."""
+    with profiling.span("prep.cluster") as prep:
+        reord = _row_reordering(csr, alpha, config, prep)
+    reord.row_time_ms = prep.duration_ms
+    return reord
+
+
+def _row_reordering(csr: CSR, alpha: float, config: SddmmConfig,
+                    prep: profiling.Span) -> BsmrReordering:
     if config.row_strategy == "none":
         nonzero = np.nonzero(csr.row_nnz() > 0)[0]
-        elapsed = (time.perf_counter() - t0) * 1e3
         return BsmrReordering(
             row_perm=nonzero.astype(np.int64),
             cluster_ids=np.zeros(nonzero.shape[0], np.int64),
             num_clusters=1 if nonzero.size else 0,
-            row_time_ms=elapsed,
+            row_time_ms=0.0,
         )
+    prep.phase("encode")
     enc = row_encodings(csr, config.encoding_block)
+    prep.phase("dispersion")
     disp = dispersion_scores(csr, enc, config.encoding_block)
+    prep.phase("sort")
     row_nnz = csr.row_nnz()
     nonzero_rows = np.nonzero(row_nnz > 0)[0]
     # ascending dispersion, stable on ties (the reference's thrust sort is
@@ -281,6 +298,7 @@ def row_reordering(csr: CSR, alpha: float, config: SddmmConfig
     order_local = np.argsort(disp[nonzero_rows], kind="stable")
     order = nonzero_rows[order_local]  # original row ids, ascending disp
     cluster_of_pos = None
+    prep.phase("greedy")
     if config.use_native:
         cluster_of_pos = _cluster_native(enc, order, alpha,
                                          exact=config.row_strategy
@@ -304,12 +322,11 @@ def row_reordering(csr: CSR, alpha: float, config: SddmmConfig
     final = np.argsort(cluster_of_pos, kind="stable")
     row_perm = order[final]
     cluster_ids = cluster_of_pos[final]
-    elapsed = (time.perf_counter() - t0) * 1e3
     return BsmrReordering(
         row_perm=row_perm.astype(np.int64),
         cluster_ids=cluster_ids,
         num_clusters=int(cluster_ids[-1]) + 1 if cluster_ids.size else 0,
-        row_time_ms=elapsed,
+        row_time_ms=0.0,
     )
 
 
@@ -344,7 +361,6 @@ def col_reordering(csr: CSR, reord: BsmrReordering,
     it. ``dense_cols`` may contain the sentinel ``csr.cols`` for padding
     (colReordering.cu:338-343); sentinel columns never reach the residual.
     """
-    t0 = time.perf_counter()
     delta = config.delta if delta is None else delta
     ph, bw = config.panel_height, config.block_width
     perm = reord.row_perm
@@ -443,7 +459,6 @@ def col_reordering(csr: CSR, reord: BsmrReordering,
     reord.sparse_cols = sparse_cols
     reord.sparse_col_offsets = sparse_col_offsets
     reord.sparse_value_offsets = sparse_value_offsets
-    reord.col_time_ms = (time.perf_counter() - t0) * 1e3
     reord.panel_height = ph
     reord.block_width = bw
     reord.delta = delta
@@ -462,7 +477,6 @@ def col_split_bsr(csr: CSR, reord: BsmrReordering,
     are shared. Each dense tile's B operand is then a contiguous slice of
     B^T: no per-tile column gather.
     """
-    t0 = time.perf_counter()
     delta = config.delta if delta is None else delta
     ph, bw = config.panel_height, config.block_width
     perm = reord.row_perm
@@ -525,7 +539,6 @@ def col_split_bsr(csr: CSR, reord: BsmrReordering,
     reord.sparse_cols = sparse_cols
     reord.sparse_col_offsets = sparse_col_offsets
     reord.sparse_value_offsets = sparse_value_offsets
-    reord.col_time_ms = (time.perf_counter() - t0) * 1e3
     reord.panel_height = ph
     reord.block_width = bw
     reord.delta = delta
@@ -534,10 +547,13 @@ def col_split_bsr(csr: CSR, reord: BsmrReordering,
 
 def split_columns(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
                   delta: Optional[float] = None) -> BsmrReordering:
-    """Dispatch on ``config.col_mode``."""
-    if config.col_mode == "bsr":
-        return col_split_bsr(csr, reord, config, delta)
-    return col_reordering(csr, reord, config, delta)
+    """Dispatch on ``config.col_mode``, recorded as the span
+    ``prep.split``; ``col_time_ms`` is its duration."""
+    split = col_split_bsr if config.col_mode == "bsr" else col_reordering
+    with profiling.span("prep.split") as prep:
+        reord = split(csr, reord, config, delta)
+    reord.col_time_ms = prep.duration_ms
+    return reord
 
 
 def bsmr(csr: CSR, config: SddmmConfig) -> BsmrReordering:

@@ -32,6 +32,7 @@ from bsmr_sddmm_tpu_torch.reorder import (BsmrReordering, row_reordering,
                                           split_columns)
 from bsmr_sddmm_tpu_torch.utils.checkdata import check_data
 from bsmr_sddmm_tpu_torch.utils.logger import RunLog
+from bsmr_sddmm_tpu_torch.utils.profiling import span
 from bsmr_sddmm_tpu_torch.utils.timing import (time_cuda, time_cuda_graph,
                                                time_host)
 
@@ -128,14 +129,17 @@ class BsmrSddmm:
     def plan(self, alpha: Optional[float] = None,
              delta=None, k: Optional[int] = None) -> TilePlan:
         """Pack a plan. ``delta="auto"`` picks the delta with the lowest
-        predicted time (``choose``)."""
+        predicted time (``choose``). Recorded as the span ``prep.plan``,
+        the root of the row clustering's, column split's and packing's
+        spans."""
         if delta == "auto":
             return self.choose(alpha, k=k).plan
         if alpha == "auto":
             raise ValueError('alpha="auto" requires delta="auto"')
-        reord = self.reorder(alpha, delta)
-        return pack_tiles(self.csr, reord, self.config,
-                          k=k or self.config.k)
+        with span("prep.plan"):
+            reord = self.reorder(alpha, delta)
+            return pack_tiles(self.csr, reord, self.config,
+                              k=k or self.config.k)
 
     def dense_fn(self, k: int) -> Callable:
         """The dense-fallback executor ``fn(A, Bt) -> P`` (CSR order): the
@@ -219,8 +223,9 @@ class BsmrSddmm:
             return self._benchmark_dense(A, B, A_t, Bt_t, alpha=alpha,
                                          validate=validate, file=file)
         if plan is None:
-            reord = self.reorder(alpha, delta)
-            plan = pack_tiles(self.csr, reord, cfg, k=k)
+            with span("prep.plan"):
+                reord = self.reorder(alpha, delta)
+                plan = pack_tiles(self.csr, reord, cfg, k=k)
         else:
             reord = self._row_reordering(alpha)
         dplan = device_plan(plan, device, emit="rphm")

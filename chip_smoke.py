@@ -769,22 +769,12 @@ def kernel_rows(prof):
 
 
 def union_ms(prof) -> float:
-    """Milliseconds in which at least one device kernel of the trace runs
-    (the rows of kernel_rows, by their intervals): the busy time of a call
-    whose tiers overlap on two streams, where the sum of kernel times
-    counts the overlap twice."""
-    from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and not e.name.startswith(("bsmr::", "Optimizer.")))
-    total, reach = 0.0, -math.inf
-    for start, end in spans:
-        if end > reach:
-            total += end - max(start, reach)
-            reach = end
-    return total / 1e3
+    """Milliseconds in which at least one device activity of the trace
+    runs (``benchmark.tracing``: the union of their intervals, user
+    annotations left out): the busy time of a call whose tiers overlap on
+    two streams, where the sum of kernel times counts the overlap twice."""
+    from benchmark import tracing
+    return tracing.union_us(tracing.kernels(prof)) / 1e3
 
 
 def profile_phase(torch, bt, dev, csr, busy_ms):
@@ -1444,7 +1434,6 @@ def step_split(torch, step, *args):
     """One train step under torch.profiler: device ms in the hand kernels,
     in the rest of the SDDMM body (bsmr::sddmm_body), in the backward
     SpMMs (bsmr::spmm_backward) and in the rest; and the step's loss."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1454,10 +1443,25 @@ def step_split(torch, step, *args):
     rows = kernel_rows(prof)
     total = sum(us for _, us in rows) / 1e3
     hand = sum(us for key, us in rows if any(h in key for h in HAND)) / 1e3
+    by_label = ms_by_label(prof)
+    body = by_label.get("bsmr::sddmm_body", 0.0)
+    spmm = by_label.get("bsmr::spmm_backward", 0.0)
+    top = sorted(rows, key=lambda kv: -kv[1])[:8]
+    return dict(total=total, hand=hand, body=body, spmm=spmm,
+                rest=total - hand - body - spmm,
+                top=[(key, us / 1e3) for key, us in top]), loss
+
+
+def ms_by_label(prof) -> dict:
+    """Device ms of the kernels other than the hand kernels, by the
+    outermost bsmr:: range each was launched in ("rest" outside any), so
+    that the body's tier spans (bsmr::body.*, recorded while
+    profiling.record is on) leave their kernels in bsmr::sddmm_body."""
+    from torch.autograd import DeviceType
     by_label = {}
 
     def walk(ev, label):
-        if ev.name.startswith("bsmr::"):
+        if label == "rest" and ev.name.startswith("bsmr::"):
             label = ev.name
         for k in ev.kernels:
             if not any(h in k.name for h in HAND):
@@ -1468,12 +1472,7 @@ def step_split(torch, step, *args):
     for ev in prof.events():
         if ev.cpu_parent is None and ev.device_type == DeviceType.CPU:
             walk(ev, "rest")
-    body = by_label.get("bsmr::sddmm_body", 0.0)
-    spmm = by_label.get("bsmr::spmm_backward", 0.0)
-    top = sorted(rows, key=lambda kv: -kv[1])[:8]
-    return dict(total=total, hand=hand, body=body, spmm=spmm,
-                rest=total - hand - body - spmm,
-                top=[(key, us / 1e3) for key, us in top]), loss
+    return by_label
 
 
 def say_split(tag, split, smi, phase="train"):
