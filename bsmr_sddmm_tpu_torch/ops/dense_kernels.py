@@ -13,8 +13,12 @@ before it: the kernel reads the hot columns through ``sp_colperm`` itself.
 by index: ``dense_tile`` replaces
 ``make_dense_tile_kernel`` (:204-252, the ``col_mode="reorder"`` dense
 tier) and ``fused_gathered`` replaces ``make_fused_gathered_kernel``
-(:330-416, the ``gathered_backend="fused"`` gathered tier). Each keeps its
-own launch count, so a run shows which tier went through the kernel.
+(:330-416, the ``gathered_backend="fused"`` gathered tier). ``csr_emit``
+(csrc/csr_emit.cu) replaces no Pallas kernel: it gathers the body's CSR
+values straight from the four tier arrays, where the JAX body concatenates
+them and takes along ``rphm_to_csr``; it moves bits, bound by bytes. Each
+keeps its own launch count, so a run shows which tier went through the
+kernel.
 
 What bounds them on the card (:func:`tile_work` computes it): a (ph x bw) =
 (32 x 128) tile at K = 128 is 2^20 multiply-adds, three times that in TF32
@@ -53,8 +57,11 @@ Each wrapper checks its inputs and then dispatches on the device of its
 tensors: CPU tensors go to the plain version, CUDA tensors launch the
 kernel on the current stream (no synchronisation) or raise. It counts its
 launches in ``<wrapper>.launches``, a plain int that only a kernel launch
-increments. The plain versions' ``torch.bmm`` runs in full fp32 whatever
-the caller set for TF32 (:func:`tf32_matmuls`).
+increments; :data:`WRAPPERS` names every counting wrapper, so the
+counters' readers (``utils.profiling.counters``, ``parallel.worker``,
+``chip_smoke.py``) need no list of their own. The plain versions'
+``torch.bmm`` runs in full fp32 whatever the caller set for TF32
+(:func:`tf32_matmuls`).
 """
 
 from __future__ import annotations
@@ -420,3 +427,85 @@ def fused_gathered(A_panels: torch.Tensor, Bt: torch.Tensor,
 
 
 fused_gathered.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# CSR emission
+# ---------------------------------------------------------------------------
+
+def csr_emit_plain(tiers, rphm_to_csr: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`csr_emit`: every padded slot of the tiers,
+    flattened and joined in order, then gathered along ``rphm_to_csr``."""
+    return torch.cat([t.reshape(-1) for t in tiers]).index_select(
+        0, rphm_to_csr)
+
+
+def csr_emit(tiers, rphm_to_csr: torch.Tensor) -> torch.Tensor:
+    """The body's (nnz,) values in CSR order: ``out[i]`` is slot
+    ``rphm_to_csr[i]`` of the four tiers ``(dense, packed, gathered,
+    residual)`` joined in that order, each read straight from its tier
+    (csrc/csr_emit.cu), so the joined slots are never materialised. The
+    tiers share one dtype of 4 or 2 bytes, copied bit for bit; a tier may
+    be empty. Kernel on CUDA tensors, plain version on CPU tensors."""
+    _check(len(tiers) == 4, f"csr_emit: needs the four tiers, got "
+           f"{len(tiers)}")
+    dtype, dev = tiers[0].dtype, rphm_to_csr.device
+    _check(rphm_to_csr.dtype == torch.int32 and rphm_to_csr.dim() == 1,
+           "csr_emit: rphm_to_csr must be (nnz,) int32")
+    for t in tiers:
+        _check(t.dtype == dtype, f"csr_emit: the tiers must share one "
+               f"dtype, got {[t.dtype for t in tiers]}")
+        _check(t.device == dev,
+               f"csr_emit: all tensors must be on {dev}, got {t.device}")
+    _check(tiers[0].element_size() in (2, 4),
+           f"csr_emit: values must take 4 or 2 bytes, got {dtype}")
+    counts = [t.numel() for t in tiers]
+    _check(sum(counts) < 2 ** 31, f"csr_emit: {sum(counts)} slots do not "
+           f"fit the int32 offsets of rphm_to_csr")
+    if dev.type == "cpu":
+        return csr_emit_plain(tiers, rphm_to_csr)
+    ptrs = _launch_args(dev, (*tiers, rphm_to_csr))
+    nnz = rphm_to_csr.shape[0]
+    out = torch.empty(nnz, dtype=dtype, device=dev)
+    if nnz == 0:
+        return out
+    from bsmr_sddmm_tpu_torch.ops._build import load_library
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.bsmr_csr_emit(
+            *ptrs[:4], *counts, ptrs[4], out.data_ptr(), nnz,
+            tiers[0].element_size(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on("csr_emit", err)
+    csr_emit.launches += 1
+    return out
+
+
+csr_emit.launches = 0
+
+
+def emit_work(tiers, rphm_to_csr: torch.Tensor) -> dict:
+    """Bytes of one :func:`csr_emit` launch and the least time an H100
+    could take to move them: per nonzero, 4 bytes of index read and one
+    value written; and every distinct 32-byte sector of the tiers that
+    holds a value read, counted once (neighbouring values of a CSR row
+    mostly share one), at the tensors' own addresses. ``bound_ms`` is those
+    bytes over the memory rate."""
+    dev, elem = rphm_to_csr.device, tiers[0].element_size()
+    counts = torch.tensor([t.numel() for t in tiers], dtype=torch.int64,
+                          device=dev)
+    ends = counts.cumsum(0)
+    j = rphm_to_csr.long()
+    tier = torch.searchsorted(ends, j, right=True)
+    base = torch.tensor([t.data_ptr() for t in tiers], dtype=torch.int64,
+                        device=dev)
+    addr = base[tier] + (j - (ends - counts)[tier]) * elem
+    sectors = int(torch.unique(addr // 32).numel())
+    nbytes = rphm_to_csr.numel() * (4 + elem) + 32 * sectors
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return dict(bytes=nbytes, sectors=sectors, bytes_ms=bytes_ms,
+                bound_ms=bytes_ms, bound_by="bytes")
+
+
+#: every wrapper that counts its launches in ``<wrapper>.launches``
+WRAPPERS = (bsr_dense, subpack, dense_tile, fused_gathered, csr_emit)

@@ -39,11 +39,13 @@ fp32, whatever the caller set in ``torch.backends.cuda.matmul.allow_tf32``.
 ``"highest"`` keeps the split too: within ``1e-5·(|A|·|B|ᵀ)`` of an fp32
 product.
 
-The output is the four tiers' arrays (``emit="rphm"``), one gather of
-their concatenation along ``rphm_to_csr`` (``emit="csr"``, CSR value order),
-or every padded slot of the four tiers scattered into a zero vector of
-``nnz + 1`` values whose last slot takes the pad slots
-(``emit="csr_scatter"``).
+The output is the four tiers' arrays (``emit="rphm"``), their values
+gathered along ``rphm_to_csr`` into CSR value order (``emit="csr"``:
+``dense_kernels.csr_emit``, which on CUDA tensors reads each value straight
+from its tier in one hand kernel, and on CPU tensors or with ``backend=
+"torch"`` gathers from the tiers' concatenation), or every padded slot of
+the four tiers scattered into a zero vector of ``nnz + 1`` values whose
+last slot takes the pad slots (``emit="csr_scatter"``).
 The residual and the unfused gathered tier are plain torch (the JAX package
 leaves them to XLA too). They read ``config.tier_memory_mb`` as the JAX body
 does: above ``E*K*8`` bytes (residual) or ``Tg*bw*K*4`` bytes (gathered) they
@@ -272,6 +274,7 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     side_streams = {}        # device -> the body's side stream
     packed_op = dk.subpack_plain if plain else dk.subpack
     fused_op = dk.fused_gathered_plain if plain else dk.fused_gathered
+    emit_op = dk.csr_emit_plain if plain else dk.csr_emit
 
     if plan.mode == "bsr":
         bsr_op = dk.bsr_dense_plain if plain else dk.bsr_dense
@@ -386,8 +389,7 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
         if only_tier is not None or emit == "rphm":
             return tiers
         if emit == "csr":
-            big = torch.cat([t.reshape(-1) for t in tiers])
-            return big.index_select(0, dplan.rphm_to_csr)
+            return emit_op(tiers, dplan.rphm_to_csr)
         # "csr_scatter": every padded slot written through its map; only
         # the trash slot nnz takes more than one write
         maps = (dplan.tile_scatter, dplan.sp_scatter, dplan.g_scatter,

@@ -84,9 +84,6 @@ def _problem(matrix):
     return dict(SUITE)[matrix](), cfg
 
 
-KERNELS = ("bsr_dense", "subpack", "dense_tile", "fused_gathered")
-
-
 #: timed calls a path, after its counted call and one warm-up
 ITERATIONS = 5
 #: Adam steps of the --train run (the last two are timed)
@@ -156,12 +153,12 @@ def _counted(fn, *args, device):
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     from bsmr_sddmm_tpu_torch.parallel import collectives
     collectives.zero_counts()
-    launches = {name: getattr(dk, name).launches for name in KERNELS}
+    launches = {kern: kern.launches for kern in dk.WRAPPERS}
     out = fn(*args)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out, dict(collectives.read_counts(), **{
-        name: getattr(dk, name).launches - n for name, n in launches.items()})
+        kern.__name__: kern.launches - n for kern, n in launches.items()})
 
 
 def _ms(fn, *args, device, iterations=ITERATIONS) -> float:

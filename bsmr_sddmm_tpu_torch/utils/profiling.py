@@ -214,8 +214,8 @@ def counters() -> Dict[str, float]:
     out = {name: value for name, value, _, _ in list(_counts)}
     dk = sys.modules.get("bsmr_sddmm_tpu_torch.ops.dense_kernels")
     if dk is not None:
-        for op in ("bsr_dense", "subpack", "dense_tile", "fused_gathered"):
-            out[f"{op}.launches"] = getattr(dk, op).launches
+        for fn in dk.WRAPPERS:
+            out[f"{fn.__name__}.launches"] = fn.launches
     bodies = list(_bodies)
     if bodies:
         out["body.forks"] = sum(fn.forks for fn in bodies)

@@ -22,14 +22,20 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    on bsr plans (the plan's fat group G and G=1), bsr_dense alone at K=64
    (resident route) and K=256 (streaming route) on the fat plan, dense_tile,
    fused_gathered and subpack on col_mode="reorder" plans (alpha 0.3,
-   delta 0.05), whose packed tier is the larger;
+   delta 0.05), whose packed tier is the larger; csr_emit against its plain
+   version (the cat and index_select it replaces) on the tiers and
+   rphm_to_csr of MAIN's fp32 bsr plans (banded_mesh_32k, community_20k),
+   fp32 and fp16 values, bit for bit, timed beside its byte bound
+   (dense_kernels.emit_work) and the cat and index_select as a library
+   call (replayed) and as the plain version (eager);
 4. main path: BsmrSddmm(csr, cfg).benchmark(A, B, validate=True) at K=128
    on banded_mesh_32k and community_20k: the bsr path (and once with fp16
    output), the reorder path with the fused gathered tier (once with
    tier_times), and the bsr path with the fused gathered tier. Every run
    must pass check_data against the fp64 oracle, and the launch counters
    of the kernels it runs, set to 0 just before it, must rise during it;
-   then one pipe.run() per run counts each kernel's launches per call,
+   then one pipe.run() per run counts each kernel's launches per call
+   (the CSR emission's, csr_emit, must be 1),
    and torch.profiler over 20 calls of the bsr and the reorder body on
    banded_mesh_32k (at tier_serialize "off", whose eager calls fork as a
    replay of "auto" does) gives device busy time, host enqueue time, each
@@ -199,6 +205,9 @@ KERNELS = {
                        replaces="bsmr_sddmm_tpu/ops/pallas_dense.py:238"),
     "fused_gathered": dict(source=f"{PKG}/csrc/gathered_tile.cu",
                            replaces="bsmr_sddmm_tpu/ops/pallas_dense.py:405"),
+    # no Pallas kernel: the JAX body's jnp.concatenate and jnp.take
+    "csr_emit": dict(source=f"{PKG}/csrc/csr_emit.cu",
+                     replaces="bsmr_sddmm_tpu/ops/sddmm.py:571"),
 }
 # the main path's runs, K=128, ph=32, subpack 12: (SUITE matrix, alpha,
 # delta, out dtype, col_mode, gathered_backend, tier_times, the kernels the
@@ -506,16 +515,80 @@ def check_gathered_kernels(torch, bt, dev, csr, results):
     return failures
 
 
+def check_csr_emit(torch, bt, dev, suite, results):
+    """Phase 3, third part: csr_emit against csr_emit_plain on the tiers
+    and rphm_to_csr of MAIN's fp32 bsr plans, the tiers computed by the
+    rphm body in fp32 and in fp16. The kernel moves bits, so it must be
+    torch.equal to the plain version, and so must the emit="csr" body's
+    output. Timed in turns (kernel, library, plain, kernel): the kernel and
+    the library call (the cat and index_select) as replayed CUDA graphs,
+    the plain version (the same ops) eagerly, beside the kernel's bound
+    (dense_kernels.emit_work). The kernels line keeps banded_mesh_32k's
+    fp32 times."""
+    from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+    from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, make_sddmm_body
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda, time_cuda_graph
+    failures, rec = [], results["csr_emit"]
+    for name, alpha, delta, od, mode, gb, _, _ in MAIN:
+        if (mode, gb, od) != ("bsr", "xla", "float32"):
+            continue
+        csr = suite[name]
+        cfg = bt.SddmmConfig(k=128, alpha=alpha, delta=delta,
+                             subpack_min_nnz=12)
+        plan = bt.pack_tiles(csr, bt.BsmrSddmm(csr, cfg).reorder(), cfg)
+        dp = device_plan(plan, dev)
+        A = torch.from_numpy(bt.make_dense(csr.rows, 128, seed=1337)).to(dev)
+        Bt = torch.from_numpy(
+            bt.make_dense(128, csr.cols, seed=1338).T.copy()).to(dev)
+        idx = dp.rphm_to_csr
+        for out_dtype in ("float32", "float16"):
+            c = cfg.replace(out_dtype=out_dtype)
+            tiers = make_sddmm_body(plan, c, emit="rphm")(A, Bt, dp)
+            got = dk.csr_emit(tiers, idx)
+            want = dk.csr_emit_plain(tiers, idx)
+            body = make_sddmm_body(plan, c)(A, Bt, dp)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want) and torch.equal(body, want)
+            if not equal:
+                failures.append(f"csr_emit {name} {out_dtype}")
+            work = dk.emit_work(tiers, idx)
+            first, _ = time_cuda_graph(lambda: dk.csr_emit(tiers, idx))
+            lib_ms, _ = time_cuda_graph(lambda: dk.csr_emit_plain(tiers,
+                                                                  idx))
+            plain_ms, _ = time_cuda(lambda: dk.csr_emit_plain(tiers, idx),
+                                    iterations=20)
+            again, _ = time_cuda_graph(lambda: dk.csr_emit(tiers, idx))
+            ms = (first + again) / 2
+            say(f"[kernels]   csr_emit {name} K=128 {out_dtype} nnz "
+                f"{idx.numel()} of {sum(t.numel() for t in tiers)} slots: "
+                f"kernel, body and plain bit-equal {equal}; kernel "
+                f"{ms:.4f} ms ({first:.4f}, {again:.4f}); bound "
+                f"{work['bound_ms']:.4f} ms (bytes: {work['bytes'] / 1e6:.1f}"
+                f" MB, {work['sectors']} sectors of values read), share of "
+                f"bound {work['bound_ms'] / ms:.0%}; library (cat + "
+                f"index_select, replayed) {lib_ms:.4f} ms; plain {plain_ms:.4f}"
+                f" ms")
+            if out_dtype == "float32":
+                rec["max_abs_err"] = max(rec["max_abs_err"], float(
+                    (got.double() - want.double()).abs().max()))
+                if name == "banded_mesh_32k":
+                    rec.update(ms=ms, plain_ms=plain_ms,
+                               bound_ms=work["bound_ms"], bound_by="bytes",
+                               library_ms=lib_ms)
+            del tiers, got, want, body
+    return failures
+
+
 def zero_launches():
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
-    for kname in KERNELS:
-        getattr(dk, kname).launches = 0
+    for kern in dk.WRAPPERS:
+        kern.launches = 0
 
 
 def read_launches(results):
     """The counters since zero_launches(), added to the kernels line."""
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
-    launches = {kname: getattr(dk, kname).launches for kname in KERNELS}
+    launches = {kern.__name__: kern.launches for kern in dk.WRAPPERS}
     for kname, n in launches.items():
         results[kname]["launches"] += n
     return launches
@@ -577,12 +650,12 @@ def main_path(bt, dev, suite, results, picks):
         # is kept); counted apart from the benchmark's launches above
         zero_launches()
         pipe.run(A, B)
-        per_call = {kname: getattr(dk, kname).launches for kname in KERNELS}
+        per_call = {kern.__name__: kern.launches for kern in dk.WRAPPERS}
         say(f"[main]   launches per call: {per_call}")
         for kname, n in per_call.items():
             rec = results[kname]
             rec["launches_per_call"] = max(rec["launches_per_call"], n)
-            if kname in expect and n != 1:
+            if kname in expect + ("csr_emit",) and n != 1:
                 failures.append(f"{run}: {kname} launched {n} times in one "
                                 f"call")
     return failures
@@ -2503,6 +2576,10 @@ def main() -> int:
     bt = import_port()
     from bsmr_sddmm_tpu_torch import datasets
     from bsmr_sddmm_tpu_torch.ops import _build
+    from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+    if set(KERNELS) != {kern.__name__ for kern in dk.WRAPPERS}:
+        fail(f"KERNELS {sorted(KERNELS)} is not the set of counting "
+             f"wrappers, dense_kernels.WRAPPERS")
     from bsmr_sddmm_tpu_torch.utils.compilecache import enable_compile_cache
     # the plain versions are the reference: full fp32 matmuls, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2563,6 +2640,7 @@ def main() -> int:
                              results)
     failures += check_gathered_kernels(torch, bt, dev,
                                        suite["banded_mesh_32k"], results)
+    failures += check_csr_emit(torch, bt, dev, suite, results)
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
     picks = {}
