@@ -9,6 +9,11 @@ program cannot change the masks the benchmark measures. Each returns a
 ``benchmark/tests/test_bench_data.py`` holds them bit for bit against the
 port's ``datasets.SUITE`` and ``replicas``.
 
+A configuration may also name a generator of a file of its own,
+``benchmark/data/masks/<generator>.py`` (``spec.mask_generator``), which a
+later configuration adds without an edit here; its ``EXAMPLE_SHA256``, the
+:func:`digest` of its ``EXAMPLE``'s mask, holds it frozen in the same way.
+
 Operands follow the original's ``Matrix::makeData`` convention, uniform
 [0, 2) (the port's ``formats.make_dense``); the benchmark draws them on the
 card from ``--seed`` (``loadgen.make_ring``).
@@ -22,6 +27,8 @@ import json
 import os
 
 import numpy as np
+
+from benchmark.spec import ROOT, mask_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,24 +232,36 @@ GENERATORS = {"banded": banded, "community": community, "rmat": rmat,
               "uniform": uniform, "replica": replica}
 
 
-def make_mask(spec: dict) -> Mask:
+def make_mask(spec: dict, root: str = ROOT) -> Mask:
     """The mask a configuration file's ``mask`` entry names:
-    ``{"generator": <name>, <its keyword arguments>}``."""
+    ``{"generator": <name>, <its keyword arguments>}``, where the name is
+    one of ``GENERATORS`` or else of a generator file of the benchmark at
+    ``root``."""
     kwargs = dict(spec)
     name = kwargs.pop("generator")
-    if name not in GENERATORS:
-        raise ValueError(f"unknown mask generator {name!r}")
-    return GENERATORS[name](**kwargs)
+    if name in GENERATORS:
+        return GENERATORS[name](**kwargs)
+    return mask_generator(name, root).make(**kwargs)
+
+
+def digest(mask: Mask) -> str:
+    """The SHA-256 of a mask's shape, ``row_offsets`` (int64) and
+    ``col_indices`` (int32), as a generator file's ``EXAMPLE_SHA256``
+    records it."""
+    h = hashlib.sha256(np.array([mask.rows, mask.cols], "<i8").tobytes())
+    h.update(np.ascontiguousarray(mask.row_offsets, "<i8").tobytes())
+    h.update(np.ascontiguousarray(mask.col_indices, "<i4").tobytes())
+    return h.hexdigest()
 
 
 #: bump when a generator's output changes, so that no stale file is read
 CACHE_VERSION = 1
 
 
-def cached_mask(spec: dict, cache_dir: str) -> Mask:
-    """``make_mask(spec)``, kept as a ``.npz`` under ``cache_dir`` (inside
-    the checkout) after the first run, since the mask is the deployment and
-    does not change with the seed."""
+def cached_mask(spec: dict, cache_dir: str, root: str = ROOT) -> Mask:
+    """``make_mask(spec, root)``, kept as a ``.npz`` under ``cache_dir``
+    (inside the checkout) after the first run, since the mask is the
+    deployment and does not change with the seed."""
     key = hashlib.sha256(json.dumps([CACHE_VERSION, spec], sort_keys=True)
                          .encode()).hexdigest()[:16]
     path = os.path.join(cache_dir, f"mask-{key}.npz")
@@ -250,7 +269,7 @@ def cached_mask(spec: dict, cache_dir: str) -> Mask:
         with np.load(path) as z:
             return Mask(int(z["shape"][0]), int(z["shape"][1]),
                         z["row_offsets"], z["col_indices"])
-    mask = make_mask(spec)
+    mask = make_mask(spec, root)
     os.makedirs(cache_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.npz"
     np.savez(tmp, shape=np.array([mask.rows, mask.cols]),

@@ -58,7 +58,7 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     cell = spec.cell(bench, cell_name)
     config = spec.config(bench, cell["config"], root)
     traffic = spec.traffic(cell["traffic"], root)
-    c = loadgen.Cell(config, traffic, device, settings)
+    c = loadgen.Cell(config, traffic, device, settings, root)
     t_prepare = time.perf_counter()
     run = c.prepare(os.path.join(root, "build"))
     run.setup_parts = {"start": t_prepare - t_start, **run.setup_parts}

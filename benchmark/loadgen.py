@@ -37,7 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from benchmark import reference, tracing
+from benchmark import reference, spec, tracing
 from benchmark.data.generators import Mask, cached_mask
 
 #: preprocessings of the mask in set-up, each timed
@@ -136,11 +136,12 @@ class Cell:
     """One configuration under one traffic mix, set up on ``device``.
 
     ``settings`` overrides entries of the configuration's ``settings``
-    (the control runs the program at ``matmul_precision="default"``)."""
+    (the control runs the program at ``matmul_precision="default"``);
+    ``root`` is the checkout whose generator files make the mask."""
 
     def __init__(self, config: dict, traffic: dict, device,
-                 settings: Optional[dict] = None):
-        self.config, self.traffic = config, traffic
+                 settings: Optional[dict] = None, root: str = spec.ROOT):
+        self.config, self.traffic, self.root = config, traffic, root
         self.device = torch.device(device)
         self.k = int(traffic["k"])
         self.mode = traffic["mode"]
@@ -172,7 +173,8 @@ class Cell:
         t_mask = time.perf_counter()
         t_init = t_mask - t_init
         self.mask: Mask = cached_mask(self.config["mask"],
-                                      os.path.join(run_dir, "masks"))
+                                      os.path.join(run_dir, "masks"),
+                                      self.root)
         t_mask = time.perf_counter() - t_mask
         mask = self.mask
         if self.config.get("expected_nnz") not in (None, mask.nnz):
@@ -295,15 +297,12 @@ class Cell:
             idle_gaps=tracing.top(tracing.idle_gaps(kernels, ops)))
 
     def counters(self, run: Run) -> None:
-        """The program's own counters: kernel launches and forks."""
+        """The program's own counters: the launches of every counting
+        wrapper of its hand kernels, and the body's forks."""
         from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
-        run.counters = {
-            "bsr_dense.launches": dk.bsr_dense.launches,
-            "subpack.launches": dk.subpack.launches,
-            "dense_tile.launches": dk.dense_tile.launches,
-            "fused_gathered.launches": dk.fused_gathered.launches,
-            "body.forks": self.fn.forks,
-        }
+        run.counters = {f"{fn.__name__}.launches": fn.launches
+                        for fn in dk.WRAPPERS}
+        run.counters["body.forks"] = self.fn.forks
 
     # -- the check ----------------------------------------------------------
     def check(self, run: Run, keep_body: bool = False) -> None:

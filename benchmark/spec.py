@@ -12,7 +12,12 @@ sits in a file of its own, which is found from the names in
   dotted part, so that one quantity split by the cells that report it
   (``kernels.hand_ms.eager`` beside ``kernels.hand_ms``) has one reader.
   Unit, direction, layer and what it moves are declared in
-  ``BENCHMARK.json`` alone.
+  ``BENCHMARK.json`` alone;
+- a mask generator that is not one of the frozen ones of
+  ``data/generators.py``: ``benchmark/data/masks/<generator>.py``, a
+  ``make(**kwargs)`` that returns a ``generators.Mask``, with a small
+  ``EXAMPLE`` (its keyword arguments) and ``EXAMPLE_SHA256``, the
+  ``generators.digest`` of that example's mask, which holds it frozen.
 
 So a cell, a configuration, a mix or a metric is added by adding files and
 entries, with no edit to a file that is there. Nothing here imports torch.
@@ -68,17 +73,31 @@ def traffic(name: str, root: str = ROOT) -> dict:
         return json.load(f)
 
 
+def _load(path: str, prefix: str, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(
+        prefix + re.sub(r"\W", "_", name), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def metric(name: str, root: str = ROOT) -> ModuleType:
     """The reader module of the metric ``name``."""
     metrics = os.path.join(root, HERE, "metrics")
     path = os.path.join(metrics, f"{_check_name(name)}.py")
     if not os.path.exists(path) and "." in name:
         path = os.path.join(metrics, f"{name.rsplit('.', 1)[0]}.py")
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + re.sub(r"\W", "_", name), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return _load(path, "benchmark_metric_", name)
+
+
+def mask_generator(name: str, root: str = ROOT) -> ModuleType:
+    """The module of the generator file ``data/masks/<name>.py``; a
+    ``ValueError`` where there is none."""
+    path = os.path.join(root, HERE, "data", "masks",
+                        f"{_check_name(name)}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"unknown mask generator {name!r}")
+    return _load(path, "benchmark_mask_", name)
 
 
 def metrics_of(bench: dict, cell_name: str, trace: bool) -> List[dict]:

@@ -47,9 +47,11 @@ def test_result_line_schema(root, trace):
         assert metric["unit"] == want[name]
         assert isinstance(metric["value"], float) and metric["value"] > 0
     if trace:
-        # no device trace on the CPU: its readers report nothing
-        assert set(out["metrics"]) == {"prep_s", "prep.reorder_s",
-                                       "prep.pack_s"}
+        # no device trace on the CPU: its readers report nothing, and
+        # every other per-layer reader reports
+        assert set(out["metrics"]) == {
+            m["name"] for m in spec.metrics_of(bench, tiny.CELL, True)
+            if m["source"] != "device_trace"}
         assert out["metrics"]["prep_s"]["value"] == min(run.prep_s)
         assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
         assert {"busy_s", "window_s"} <= set(out["device"])

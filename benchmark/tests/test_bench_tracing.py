@@ -30,7 +30,8 @@ def test_hand_kernels_are_the_ports_global_functions():
     hand = tracing.hand_kernel_names(
         os.path.dirname(bsmr_sddmm_tpu_torch.__file__))
     assert set(hand) == {"bsr_resident_kernel", "bsr_stream_kernel",
-                         "subpack_kernel", "gathered_tile_kernel"}
+                         "subpack_kernel", "gathered_tile_kernel",
+                         "csr_emit_kernel"}
     assert tracing.is_hand("void bsr_resident_kernel<32, 128, 3>(float "
                            "const*, float const*)", hand)
     assert not tracing.is_hand("void at::native::index_elementwise_kernel"
