@@ -2,8 +2,9 @@
 kernels.
 
 * :mod:`graph_transformer` — sparse-attention GNN over a graph mask.
-* :mod:`sparse_transformer` — decoder transformer with a fixed
-  local+strided attention mask.
+* :mod:`sparse_transformer` — decoder transformer with a fixed causal
+  attention mask: the JAX package's local + summary-column mask, or the
+  Sparse Transformer's "fixed" pattern (``ENWIK8``).
 """
 
 from bsmr_sddmm_tpu_torch.models import sparse_transformer

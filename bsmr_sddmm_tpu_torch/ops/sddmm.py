@@ -59,7 +59,10 @@ a leading batch dimension.
 Observability (``utils.profiling``): building a body records the counters
 ``body.nnz`` and ``body.slots.{dense,packed,gathered,residual}`` (each
 tier's padded output slots: ``T·ph·bw``, ``Tp·ph·bw``, ``Tg·ph·bw``,
-``E``); ``device_plan`` is the span ``prep.upload`` with the counter
+``E``), what the dense tier's launch references (``body.dense.tiles``,
+``.a_rows``, ``.b_rows``, ``.index_bytes``), the tile shape
+(``body.tile.rows``, ``body.tile.cols``) and the hand kernels' TF32 passes
+(``body.passes``); ``device_plan`` is the span ``prep.upload`` with the counter
 ``plan.device_bytes``. While ``profiling.record`` is on, a call is the
 span ``call`` with the children ``body.row_gather``, ``body.dense``,
 ``body.packed``, ``body.gathered``, ``body.residual`` and ``body.emit``,
@@ -171,6 +174,38 @@ def resolve_device(device=None) -> torch.device:
         "kernels' plain versions on the CPU")
 
 
+def _dense_src(plan: TilePlan) -> np.ndarray:
+    """What the dense tier's launch reads beside the panel ids: each
+    tile's column ids (reorder), one column block per fat step (bsr, G>1)
+    or one per tile (bsr, G=1)."""
+    if plan.mode != "bsr":
+        return plan.tile_cols
+    return plan.step_cblock if plan.fat_group > 1 else plan.tile_cblock
+
+
+def _count_dense_work(plan: TilePlan, passes: int) -> None:
+    """The counters of what the dense tier's launch references: its tiles
+    (padding included), the distinct rows of A (of ``A_perm``, a panel's
+    ``ph`` rows) and of B, its index bytes, the tile shape and the hand
+    kernels' TF32 passes."""
+    ph, bw, n = plan.panel_height, plan.block_width, plan.cols
+    panel, src = plan.tile_panel, _dense_src(plan)
+    if plan.mode == "bsr":
+        first = np.unique(plan.tile_cblock).astype(np.int64) * bw
+        b_rows = int((np.minimum(first + bw, n) - first).clip(min=0).sum())
+    else:
+        ids = np.unique(src)
+        b_rows = int(((ids >= 0) & (ids < n)).sum())
+    for name, value in (
+            ("body.dense.tiles", panel.shape[0]),
+            ("body.dense.a_rows", np.unique(panel).shape[0] * ph),
+            ("body.dense.b_rows", b_rows),
+            ("body.dense.index_bytes", 4 * (panel.size + src.size)),
+            ("body.tile.rows", ph), ("body.tile.cols", bw),
+            ("body.passes", passes)):
+        profiling.count(name, int(value))
+
+
 def device_plan(plan: TilePlan, device, emit: str = "csr") -> DevicePlan:
     """Upload a TilePlan's arrays to ``device``.
 
@@ -180,12 +215,7 @@ def device_plan(plan: TilePlan, device, emit: str = "csr") -> DevicePlan:
     and only CSR emission and the statistics need them."""
     device = torch.device(device)
     light = emit == "rphm"
-    if plan.mode != "bsr":
-        tile_src = plan.tile_cols
-    elif plan.fat_group > 1:
-        tile_src = plan.step_cblock
-    else:
-        tile_src = plan.tile_cblock
+    tile_src = _dense_src(plan)
 
     def up(arr, shape=(0,)):
         arr = np.zeros(shape, np.int32) if arr is None else arr
@@ -409,6 +439,7 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
                         ("residual", E)):
         profiling.count(f"body.slots.{tier}", slots)
     profiling.count("body.nnz", nnz)
+    _count_dense_work(plan, passes)
     return fn
 
 
