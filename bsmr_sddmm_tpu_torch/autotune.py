@@ -424,23 +424,25 @@ def _store_costs(costs: dict, device_kind: str) -> str:
     return path
 
 
-def _fit_affine(costs: dict, prefix: str, pairs) -> None:
+def _fit_affine(costs: dict, prefix: str, pairs,
+                floor: float = 0.5) -> None:
     """Fit ``costs[prefix_base_ns] + costs[prefix_k_ns] * k`` to
-    ``pairs`` [(k, per_unit_ns or None)]: slope clamped >= 0, base >= 0.5;
-    one pair keeps the slope and shifts the base; none leaves both."""
+    ``pairs`` [(k, per_unit_ns or None)]: slope clamped >= 0, base >=
+    ``floor``; one pair keeps the slope and shifts the base; none leaves
+    both."""
     pairs = [(k, v) for k, v in pairs if v is not None]
     if not pairs:
         return
     if len(pairs) == 1:
         k0, v0 = pairs[0]
         costs[f"{prefix}_base_ns"] = max(
-            v0 - costs[f"{prefix}_k_ns"] * k0, 0.5)
+            v0 - costs[f"{prefix}_k_ns"] * k0, floor)
         return
     karr = np.array([p[0] for p in pairs], float)
     varr = np.array([p[1] for p in pairs], float)
     slope, base = np.polyfit(karr, varr, 1)
     costs[f"{prefix}_k_ns"] = max(float(slope), 0.0)
-    costs[f"{prefix}_base_ns"] = max(float(base), 0.5)
+    costs[f"{prefix}_base_ns"] = max(float(base), floor)
 
 
 def _time_tier(body, A, Bt, dplan) -> float:
@@ -513,11 +515,13 @@ def calibrate(store: bool = True, ks=CALIBRATION_KS, device=None) -> dict:
     _fit_affine(costs, "gathered",
                 [(k, tier_per_unit(csr_g, cfg_g, "gathered", 0.02, k)[0])
                  for k in ks])
-    # 4. per-nnz residual
+    # 4. per-nnz residual. Its base is not held to the tiles' 0.5 ns floor:
+    # the card's residual kernel takes about a tenth of a nanosecond a
+    # nonzero, which that floor would price several times over.
     cfg_r = cfg.replace(residual_mode="pernnz", subpack_min_nnz=0)
     _fit_affine(costs, "pernnz",
                 [(k, tier_per_unit(csr_g, cfg_r, "residual", 1.1, k)[0])
-                 for k in ks])
+                 for k in ks], floor=0.0)
 
     _CALIBRATED = costs
     if store and device.type == "cuda":

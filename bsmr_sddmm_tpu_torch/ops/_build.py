@@ -31,7 +31,8 @@ from bsmr_sddmm_tpu_torch.utils.profiling import span
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("bsr_dense.cu", "subpack.cu", "gathered_tile.cu", "csr_emit.cu")
+SOURCES = ("bsr_dense.cu", "subpack.cu", "gathered_tile.cu", "csr_emit.cu",
+           "residual.cu")
 HEADERS = ("tile_mma.cuh", "tile_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -151,5 +152,7 @@ def _load() -> ctypes.CDLL:
     lib.bsmr_gathered_tile.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.bsmr_csr_emit.restype = i
     lib.bsmr_csr_emit.argtypes = [p] * 4 + [i] * 4 + [p] * 2 + [i] * 2 + [p]
+    lib.bsmr_residual.restype = i
+    lib.bsmr_residual.argtypes = [p] * 5 + [i] * 3 + [p]
     build_info["path"] = path
     return lib

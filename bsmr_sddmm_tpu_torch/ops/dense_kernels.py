@@ -16,9 +16,13 @@ tier) and ``fused_gathered`` replaces ``make_fused_gathered_kernel``
 (:330-416, the ``gathered_backend="fused"`` gathered tier). ``csr_emit``
 (csrc/csr_emit.cu) replaces no Pallas kernel: it gathers the body's CSR
 values straight from the four tier arrays, where the JAX body concatenates
-them and takes along ``rphm_to_csr``; it moves bits, bound by bytes. Each
-keeps its own launch count, so a run shows which tier went through the
-kernel.
+them and takes along ``rphm_to_csr``; it moves bits, bound by bytes.
+``residual`` (csrc/residual.cu) replaces no Pallas kernel either: the JAX
+body leaves the per-nonzero residual to XLA (a row gather of each operand, a
+multiply and a sum); the kernel reads each nonzero's two rows straight from
+the operands and writes one fp32 dot product, with no (E, K) copy, bound by
+bytes. Each keeps its own launch count, so a run shows which tier went
+through the kernel.
 
 What bounds them on the card (:func:`tile_work` computes it): a (ph x bw) =
 (32 x 128) tile at K = 128 is 2^20 multiply-adds, three times that in TF32
@@ -67,6 +71,7 @@ counters' readers (``utils.profiling.counters``, ``parallel.worker``,
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -507,5 +512,94 @@ def emit_work(tiers, rphm_to_csr: torch.Tensor) -> dict:
                 bound_ms=bytes_ms, bound_by="bytes")
 
 
+# ---------------------------------------------------------------------------
+# Residual tier
+# ---------------------------------------------------------------------------
+
+def residual_plain(A_perm: torch.Tensor, Bt: torch.Tensor,
+                   res_arow: torch.Tensor, res_col: torch.Tensor, *,
+                   out_dtype: torch.dtype = torch.float32,
+                   chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`residual`: a row gather of each operand, a
+    multiply and a sum, ``chunk`` nonzeros at a time (all at once by
+    default; the chunks change no value). (E,)."""
+    E = res_arow.shape[0]
+    step = max(E, 1) if chunk is None else chunk
+    parts = [(A_perm.index_select(0, res_arow[s:s + step])
+              * Bt.index_select(0, res_col[s:s + step])).sum(-1).to(out_dtype)
+             for s in range(0, E, step)]
+    if not parts:
+        return A_perm.new_empty((0,), dtype=out_dtype)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def residual(A_perm: torch.Tensor, Bt: torch.Tensor, res_arow: torch.Tensor,
+             res_col: torch.Tensor, *, out_dtype: torch.dtype = torch.float32,
+             chunk: Optional[int] = None) -> torch.Tensor:
+    """Residual tier: (E,) values ``out[e] = sum_k A_perm[res_arow[e], k] *
+    Bt[res_col[e], k]`` of ``A_perm`` (rows, K) and ``Bt`` (N, K), fp32
+    products and sums at every ``matmul_precision`` (no TF32 reaches them),
+    each nonzero's two rows read inside the kernel (csrc/residual.cu), so
+    no (E, K) copy exists. Kernel on CUDA tensors; plain version on CPU
+    tensors, in row chunks of ``chunk`` nonzeros (the kernel needs none)."""
+    _check(A_perm.dim() == 2 and Bt.dim() == 2
+           and A_perm.shape[1] == Bt.shape[1],
+           f"residual: A_perm must be (rows, K) and Bt (N, K), got "
+           f"{tuple(A_perm.shape)} and {tuple(Bt.shape)}")
+    _check(A_perm.dtype == torch.float32 and Bt.dtype == torch.float32,
+           "residual: operands must be float32")
+    _check(out_dtype in _OUT_DTYPES, f"residual: out_dtype must be float32 "
+           f"or float16, got {out_dtype}")
+    _check(res_arow.dim() == 1 and res_arow.shape == res_col.shape,
+           f"residual: res_arow and res_col must be (E,), got "
+           f"{tuple(res_arow.shape)} and {tuple(res_col.shape)}")
+    dev = A_perm.device
+    for label, t in (("res_arow", res_arow), ("res_col", res_col)):
+        _check(t.dtype == torch.int32, f"residual: {label} must be int32")
+    for t in (Bt, res_arow, res_col):
+        _check(t.device == dev,
+               f"residual: all tensors must be on {dev}, got {t.device}")
+    if dev.type == "cpu":
+        return residual_plain(A_perm, Bt, res_arow, res_col,
+                              out_dtype=out_dtype, chunk=chunk)
+    ptrs = _launch_args(dev, (A_perm, Bt, res_arow, res_col))
+    E, K = res_arow.shape[0], A_perm.shape[1]
+    out = torch.empty(E, dtype=out_dtype, device=dev)
+    if E == 0:
+        return out
+    _check(K > 0, "residual: operands of depth 0")
+    from bsmr_sddmm_tpu_torch.ops._build import load_library
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.bsmr_residual(
+            *ptrs, out.data_ptr(), E, K, int(out_dtype == torch.float16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on("residual", err)
+    residual.launches += 1
+    return out
+
+
+residual.launches = 0
+
+
+def residual_work(A_perm: torch.Tensor, Bt: torch.Tensor,
+                  res_arow: torch.Tensor, res_col: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32) -> dict:
+    """Bytes of one :func:`residual` launch and the least time an H100
+    could take to move them: every distinct row of ``A_perm`` and of ``Bt``
+    that a nonzero reads, K floats each, counted once; per nonzero 8 bytes
+    of index read and one value written. ``bound_ms`` is those bytes over
+    the memory rate (the 2·E·K fp32 operations take far less)."""
+    E, K = res_arow.numel(), A_perm.shape[1]
+    a_rows = int(torch.unique(res_arow).numel())
+    b_rows = int(torch.unique(res_col).numel())
+    elem = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = 4 * K * (a_rows + b_rows) + E * (8 + elem)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return dict(bytes=nbytes, a_rows=a_rows, b_rows=b_rows,
+                bytes_ms=bytes_ms, bound_ms=bytes_ms, bound_by="bytes")
+
+
 #: every wrapper that counts its launches in ``<wrapper>.launches``
-WRAPPERS = (bsr_dense, subpack, dense_tile, fused_gathered, csr_emit)
+WRAPPERS = (bsr_dense, subpack, dense_tile, fused_gathered, csr_emit,
+            residual)

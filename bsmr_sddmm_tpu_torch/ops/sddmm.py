@@ -13,7 +13,10 @@ The counterpart of ``bsmr_sddmm_tpu.ops.sddmm`` (``device_plan``,
 4. gathered tier: ``dense_kernels.fused_gathered`` where the JAX body takes
    its fused arm (``gathered_backend="fused"``, Tg > 0, no gather windows),
    else a row gather of each tile's bw columns and one ``bmm``;
-5. residual: two row gathers and a multiply-sum per nonzero.
+5. residual: ``dense_kernels.residual``, one fp32 dot product per nonzero of
+   its ``A_perm`` row and its ``Bt`` row, read inside the kernel (no (E, K)
+   copy); on CPU tensors and with ``backend="torch"`` two row gathers, a
+   multiply and a sum.
 
 On CUDA tensors the tiers may run on two streams, the CUDA original's
 split of its tensor-core and CUDA-core kernels
@@ -46,10 +49,11 @@ from its tier in one hand kernel, and on CPU tensors or with ``backend=
 "torch"`` gathers from the tiers' concatenation), or every padded slot of
 the four tiers scattered into a zero vector of ``nnz + 1`` values whose
 last slot takes the pad slots (``emit="csr_scatter"``).
-The residual and the unfused gathered tier are plain torch (the JAX package
-leaves them to XLA too). They read ``config.tier_memory_mb`` as the JAX body
-does: above ``E*K*8`` bytes (residual) or ``Tg*bw*K*4`` bytes (gathered) they
-run in row chunks, which changes no value. The JAX body's gather windows
+The unfused gathered tier is plain torch (the JAX package leaves it to XLA
+too), and so is the residual's plain version. Both read
+``config.tier_memory_mb`` as the JAX body does: above ``E*K*8`` bytes
+(residual) or ``Tg*bw*K*4`` bytes (gathered) they run in row chunks, which
+changes no value; the residual kernel needs none. The JAX body's gather windows
 (``g_groups``, ``res_groups``) avoid a gather-rate cliff of its TPU; here
 those plans run by absolute index, which gives the same values. Padded tail
 slots are computed from valid pad indices; no slot past a tier's real count
@@ -305,6 +309,7 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
     packed_op = dk.subpack_plain if plain else dk.subpack
     fused_op = dk.fused_gathered_plain if plain else dk.fused_gathered
     emit_op = dk.csr_emit_plain if plain else dk.csr_emit
+    residual_op = dk.residual_plain if plain else dk.residual
 
     if plan.mode == "bsr":
         bsr_op = dk.bsr_dense_plain if plain else dk.bsr_dense
@@ -348,12 +353,8 @@ def make_sddmm_body(plan: TilePlan, config: SddmmConfig,
         return _joined(parts, (0, ph, bw), A_panels, out_dt)
 
     def residual_out(A_perm, Bt, dplan):
-        parts = []
-        for s in range(0, E, r_step):
-            a = A_perm.index_select(0, dplan.res_arow[s:s + r_step])
-            b = Bt.index_select(0, dplan.res_col[s:s + r_step])
-            parts.append((a * b).sum(-1).to(out_dt))
-        return _joined(parts, (0,), A_perm, out_dt)
+        return residual_op(A_perm, Bt, dplan.res_arow, dplan.res_col,
+                           out_dtype=out_dt, chunk=r_step)
 
     def tiers_of(A, Bt, dplan, tier):
         """The four tiers, each computed inside ``tier(<name>)``. When the

@@ -21,9 +21,10 @@ needs a global column permutation of B and stays on the all-gather path
 Each step runs the hand kernels the single-device body runs: the dense
 tier is ``dense_kernels.bsr_dense`` over panel-local column blocks of the
 resident panel (fat group 1), the gathered tier ``dense_kernels.
-dense_tile`` over panel-local columns, and the residual two row gathers
-and a multiply-sum. (The JAX body computes the two tile tiers with XLA's
-``dot_general``.) A call launches each tile kernel n times per shard.
+dense_tile`` over panel-local columns, and the residual ``dense_kernels.
+residual`` (the JAX body computes the two tile tiers with XLA's
+``dot_general``, the residual with two row gathers and a multiply-sum). A
+call launches each kernel n times per shard.
 ``config.matmul_precision`` sets the kernels' TF32 pass count as it does
 in the body (``ops.sddmm.PRECISION``); the ring has no torch matmul of its
 own (the plain versions of ``backend="torch"`` follow the pass count).
@@ -384,6 +385,7 @@ def make_ring_sddmm(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
     plain = backend == "torch"
     bsr_op = dk.bsr_dense_plain if plain else dk.bsr_dense
     tile_op = dk.dense_tile_plain if plain else dk.dense_tile
+    res_op = dk.residual_plain if plain else dk.residual
     passes, _ = precision_of(config.matmul_precision)
     n = mesh.size
     plan = pack_ring_plans(csr, reord, config, n, k=k)
@@ -410,9 +412,8 @@ def make_ring_sddmm(csr: CSR, reord: BsmrReordering, config: SddmmConfig,
                        fat_group=1, block_width=bw, passes=passes)
         gathered = (tile_op(A_panels, B_cur, sh["g_rp"][p], sh["g_cl"][p],
                             passes=passes) if Tg else None)
-        a = A_perm.index_select(0, sh["res_ar"][p])
-        b = B_cur.index_select(0, sh["res_cl"][p])
-        return dense, gathered, (a * b).sum(-1)
+        return dense, gathered, res_op(A_perm, B_cur, sh["res_ar"][p],
+                                       sh["res_cl"][p])
 
     def rphm(A, Bt):
         A_perm = [a.to(torch.float32).index_select(0, sh["row_perm"])

@@ -27,7 +27,11 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    rphm_to_csr of MAIN's fp32 bsr plans (banded_mesh_32k, community_20k),
    fp32 and fp16 values, bit for bit, timed beside its byte bound
    (dense_kernels.emit_work) and the cat and index_select as a library
-   call (replayed) and as the plain version (eager);
+   call (replayed) and as the plain version (eager); residual against
+   residual_plain and the rphm body's residual tier on the same plans
+   (fp32 within TOL, fp16 by check_data), timed beside its byte bound
+   (dense_kernels.residual_work) and the two index_selects, multiply and
+   sum it replaces (replayed, and eager as the plain version);
 4. main path: BsmrSddmm(csr, cfg).benchmark(A, B, validate=True) at K=128
    on banded_mesh_32k and community_20k: the bsr path (and once with fp16
    output), the reorder path with the fused gathered tier (once with
@@ -35,7 +39,8 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    must pass check_data against the fp64 oracle, and the launch counters
    of the kernels it runs, set to 0 just before it, must rise during it;
    then one pipe.run() per run counts each kernel's launches per call
-   (the CSR emission's, csr_emit, must be 1),
+   (the CSR emission's, csr_emit, must be 1, and so must the residual's
+   where the plan has one),
    and torch.profiler over 20 calls of the bsr and the reorder body on
    banded_mesh_32k (at tier_serialize "off", whose eager calls fork as a
    replay of "auto" does) gives device busy time, host enqueue time, each
@@ -208,6 +213,9 @@ KERNELS = {
     # no Pallas kernel: the JAX body's jnp.concatenate and jnp.take
     "csr_emit": dict(source=f"{PKG}/csrc/csr_emit.cu",
                      replaces="bsmr_sddmm_tpu/ops/sddmm.py:571"),
+    # no Pallas kernel: the JAX body's two jnp.take, multiply and sum
+    "residual": dict(source=f"{PKG}/csrc/residual.cu",
+                     replaces="bsmr_sddmm_tpu/ops/sddmm.py:515"),
 }
 # the main path's runs, K=128, ph=32, subpack 12: (SUITE matrix, alpha,
 # delta, out dtype, col_mode, gathered_backend, tier_times, the kernels the
@@ -579,6 +587,88 @@ def check_csr_emit(torch, bt, dev, suite, results):
     return failures
 
 
+def check_residual(torch, bt, dev, suite, results):
+    """Phase 3, fourth part: residual against residual_plain and against
+    the rphm body's residual tier, on MAIN's fp32 bsr plans, fp32 and fp16
+    output (fp32 within TOL: the kernel sums in another order; fp16 by
+    check_data). Timed in turns (kernel, library, plain, kernel): the
+    kernel and the library call (the two index_selects, the multiply and
+    the sum it replaces) as replayed CUDA graphs, the plain version (the
+    same ops) eagerly, beside the kernel's bound (dense_kernels.
+    residual_work). The kernels line keeps banded_mesh_32k's fp32 times."""
+    from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
+    from bsmr_sddmm_tpu_torch.ops.sddmm import device_plan, make_sddmm_body
+    from bsmr_sddmm_tpu_torch.utils.checkdata import check_data
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda, time_cuda_graph
+    failures, rec = [], results["residual"]
+    for name, alpha, delta, od, mode, gb, _, _ in MAIN:
+        if (mode, gb, od) != ("bsr", "xla", "float32"):
+            continue
+        csr = suite[name]
+        cfg = bt.SddmmConfig(k=128, alpha=alpha, delta=delta,
+                             subpack_min_nnz=12)
+        plan = bt.pack_tiles(csr, bt.BsmrSddmm(csr, cfg).reorder(), cfg)
+        if not plan.num_residual:
+            failures.append(f"residual {name}: the plan has no residual")
+            continue
+        dp = device_plan(plan, dev, emit="rphm")
+        A = torch.from_numpy(bt.make_dense(csr.rows, 128, seed=1337)).to(dev)
+        Bt = torch.from_numpy(
+            bt.make_dense(128, csr.cols, seed=1338).T.copy()).to(dev)
+        A_perm = A.index_select(0, dp.row_perm_padded)
+        ids = (dp.res_arow, dp.res_col)
+        for out_name, out_dtype in (("float32", torch.float32),
+                                    ("float16", torch.float16)):
+            c = cfg.replace(out_dtype=out_name)
+            got = dk.residual(A_perm, Bt, *ids, out_dtype=out_dtype)
+            want = dk.residual_plain(A_perm, Bt, *ids, out_dtype=out_dtype)
+            body = make_sddmm_body(plan, c, emit="rphm")(A, Bt, dp)[3]
+            torch.cuda.synchronize()
+            real = slice(0, plan.num_residual)
+            if out_dtype == torch.float32:
+                ok = all(bool(torch.allclose(x, want, **TOL["float32"]))
+                         for x in (got, body))
+                err = float((got.double() - want.double()).abs().max())
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            else:
+                ok = all(check_data(want[real].float().cpu().numpy(),
+                                    x[real].float().cpu().numpy()).passed
+                         for x in (got, body))
+                err = float((got.float() - want.float()).abs().max())
+            if not ok:
+                failures.append(f"residual {name} {out_dtype}")
+            work = dk.residual_work(A_perm, Bt, *ids, out_dtype=out_dtype)
+
+            def kernel():
+                return dk.residual(A_perm, Bt, *ids, out_dtype=out_dtype)
+
+            def ops():
+                return dk.residual_plain(A_perm, Bt, *ids,
+                                         out_dtype=out_dtype)
+
+            first, _ = time_cuda_graph(kernel)
+            lib_ms, _ = time_cuda_graph(ops)
+            plain_ms, _ = time_cuda(ops, iterations=20)
+            again, _ = time_cuda_graph(kernel)
+            ms = (first + again) / 2
+            say(f"[kernels]   residual {name} K=128 {out_name} E "
+                f"{plan.res_arow.shape[0]} ({plan.num_residual} real), "
+                f"{work['a_rows']} A_perm rows and {work['b_rows']} Bt rows: "
+                f"kernel and body against plain {ok} (max abs err "
+                f"{err:.3g}); kernel {ms:.4f} ms ({first:.4f}, {again:.4f});"
+                f" bound {work['bound_ms']:.4f} ms (bytes: "
+                f"{work['bytes'] / 1e6:.1f} MB), share of bound "
+                f"{work['bound_ms'] / ms:.0%}; library (index_select x2, "
+                f"mul, sum, replayed) {lib_ms:.4f} ms; plain {plain_ms:.4f}"
+                f" ms")
+            if out_dtype == torch.float32 and name == "banded_mesh_32k":
+                rec.update(ms=ms, plain_ms=plain_ms,
+                           bound_ms=work["bound_ms"], bound_by="bytes",
+                           library_ms=lib_ms)
+            del got, want, body
+    return failures
+
+
 def zero_launches():
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     for kern in dk.WRAPPERS:
@@ -655,7 +745,9 @@ def main_path(bt, dev, suite, results, picks):
         for kname, n in per_call.items():
             rec = results[kname]
             rec["launches_per_call"] = max(rec["launches_per_call"], n)
-            if kname in expect + ("csr_emit",) and n != 1:
+            needed = expect + ("csr_emit",) + (
+                ("residual",) if log.residual_nnz else ())
+            if kname in needed and n != 1:
                 failures.append(f"{run}: {kname} launched {n} times in one "
                                 f"call")
     return failures
@@ -2641,6 +2733,7 @@ def main() -> int:
     failures += check_gathered_kernels(torch, bt, dev,
                                        suite["banded_mesh_32k"], results)
     failures += check_csr_emit(torch, bt, dev, suite, results)
+    failures += check_residual(torch, bt, dev, suite, results)
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
     picks = {}

@@ -261,6 +261,13 @@ def test_fit_affine_clamps_and_single_point():
     before = dict(costs)
     tat._fit_affine(costs, "pernnz", [(32, None)])
     assert costs == before
+    # a line below the 0.5 ns floor: clamped by default, kept at floor 0
+    # (the card's per-nonzero residual kernel, as calibrate() fits it)
+    tat._fit_affine(costs, "pernnz", [(32, 0.040), (128, 0.124)])
+    assert costs["pernnz_base_ns"] == 0.5
+    tat._fit_affine(costs, "pernnz", [(32, 0.040), (128, 0.124)], floor=0.0)
+    assert costs["pernnz_base_ns"] == pytest.approx(0.012)
+    assert costs["pernnz_k_ns"] == pytest.approx(0.084 / 96)
 
 
 # ---------------------------------------------------------------------------

@@ -848,12 +848,15 @@ def test_body_on_cuda_matches_cpu(cuda, out_dtype):
     assert plan.fat_group > 1 and plan.num_packed > 0
     A = bt.make_dense(csr.rows, cfg.k, seed=5)
     Bt = bt.make_dense(csr.cols, cfg.k, seed=6)
-    before = (dk.bsr_dense.launches, dk.subpack.launches)
+    assert plan.num_residual > 0
+    before = (dk.bsr_dense.launches, dk.subpack.launches,
+              dk.residual.launches)
     got = make_sddmm_body(plan, cfg)(
         torch.from_numpy(A).to(cuda), torch.from_numpy(Bt).to(cuda),
         device_plan(plan, cuda)).cpu().numpy()
     assert dk.bsr_dense.launches > before[0]
     assert dk.subpack.launches > before[1]
+    assert dk.residual.launches == before[2] + 1
     want = make_sddmm_body(plan, cfg)(
         torch.from_numpy(A), torch.from_numpy(Bt),
         device_plan(plan, "cpu")).numpy()
@@ -873,7 +876,8 @@ def test_reorder_fused_body_on_cuda_matches_cpu(cuda, out_dtype):
     assert plan.num_tiles and plan.num_packed and plan.g_groups is None
     A = bt.make_dense(csr.rows, cfg.k, seed=5)
     Bt = bt.make_dense(csr.cols, cfg.k, seed=6)
-    kernels = (dk.dense_tile, dk.subpack, dk.fused_gathered)
+    kernels = (dk.dense_tile, dk.subpack, dk.fused_gathered) + (
+        (dk.residual,) if plan.res_arow.shape[0] else ())
     before = [w.launches for w in kernels]
     got = make_sddmm_body(plan, cfg)(
         torch.from_numpy(A).to(cuda), torch.from_numpy(Bt).to(cuda),

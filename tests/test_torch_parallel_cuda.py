@@ -41,7 +41,8 @@ N = 4
 SMALL = dict(rows=512, cols=768, nnz=20000, seed=7, block_rows=24,
              block_cols=96)
 BASE = dict(k=128, panel_height=16, subpack_min_nnz=12, delta=0.05)
-KERNELS = ("bsr_dense", "subpack", "dense_tile", "fused_gathered")
+KERNELS = ("bsr_dense", "subpack", "dense_tile", "fused_gathered",
+           "residual")
 
 
 @pytest.fixture
@@ -99,6 +100,8 @@ def test_sharded_kernels_match_plain(cuda, b_sharded, gathered):
             assert launched["fused_gathered"] == N * (
                 gathered == "fused" and plans[0].g_panel.shape[0] > 0
                 and plans[0].g_groups is None)
+            assert launched["residual"] == N * bool(
+                plans[0].res_arow.shape[0])
         else:
             assert not any(launched.values())
     assert outs["auto"].device.type == "cuda"
@@ -129,6 +132,7 @@ def test_ring_kernels_match_plain(cuda):
             assert launched["bsr_dense"] == N * N
             assert launched["dense_tile"] == N * N * bool(
                 plan.tiles_g_per_group)
+            assert launched["residual"] == N * N * bool(plan.res_per_group)
     torch.testing.assert_close(outs["auto"], outs["torch"], **TOL)
     assert check_data(sddmm_ref(A, Bt.T, csr),
                       outs["auto"].cpu().numpy()).passed
@@ -210,6 +214,8 @@ def test_sharded_train_step_kernels_match_plain(cuda, kind):
                 plans[0].tile_panel.shape[0])
             assert launched["subpack"] == per * bool(
                 plans[0].sp_panel.shape[0])
+            assert launched["residual"] == per * bool(
+                plans[0].res_arow.shape[0])
             assert launched["bsr_dense"] and launched["subpack"]
         elif name == "plain":
             assert not any(launched.values())

@@ -143,7 +143,8 @@ def test_body_matches_reference_tier_by_tier(case):
 
 def launch_counts():
     return {name: getattr(dk, name).launches for name in
-            ("bsr_dense", "subpack", "dense_tile", "fused_gathered")}
+            ("bsr_dense", "subpack", "dense_tile", "fused_gathered",
+             "residual")}
 
 
 @pytest.mark.parametrize("case", ["fused", "reorder_fused", "windowed_fused"])

@@ -67,7 +67,7 @@ def build(case, device):
 def launches():
     return {name: getattr(dk, name).launches
             for name in ("bsr_dense", "subpack", "dense_tile",
-                         "fused_gathered")}
+                         "fused_gathered", "residual")}
 
 
 def assert_grads_close(got, want):
@@ -122,6 +122,7 @@ def test_attention_head_gradients_with_kernels_match_plain(cuda, case):
     (out_k, grads_k, ran_k), (out_p, grads_p, ran_p) = results
     tile_kernel = "bsr_dense" if plan.mode == "bsr" else "dense_tile"
     assert ran_k[tile_kernel] == 1 and ran_k["subpack"] == 1
+    assert ran_k["residual"] == int(plan.res_arow.shape[0] > 0)
     assert not any(ran_p.values())
     torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-4)
     assert_grads_close(grads_k, grads_p)
