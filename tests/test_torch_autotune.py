@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.autotune as jat
 import bsmr_sddmm_tpu.baselines as jbase
 from bsmr_sddmm_tpu.config import SddmmConfig as JConfig

@@ -15,11 +15,14 @@ import re
 
 import pytest
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.datasets as jds
 import bsmr_sddmm_tpu.utils.compilecache as jcompilecache
 
 import bsmr_sddmm_tpu_torch.datasets as tds
 from bsmr_sddmm_tpu_torch.bench import replica_suite, suite
+from bsmr_sddmm_tpu_torch.tools import check_autotune
 from bsmr_sddmm_tpu_torch.utils.logger import RunLog
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,15 +158,18 @@ def test_suite_names_failed_cells_and_exits_1(tiny_suites, monkeypatch,
                                       "256": 1}
 
 
-def test_suite_full_grid_and_extra_arms(tiny_suites):
+def test_suite_full_grid_and_extra_arms(tiny_suites, tmp_path):
     """BENCH_FULL_GRID: ALPHAS x CONFIGS at K=128, the best N_TRANSFER
     combos at the other K, an fp16 arm on each K's best combo, the first
     fp32 arm of each K validated. BENCH_EXTRA_ARMS: the autotuner's priced
     pick runs as one more (unvalidated) arm where it differs from
-    R4_BEST's."""
-    lines = []
+    R4_BEST's. The echoed K=128 group parses (``check_autotune``'s
+    positional parse) to the run's own arm records at the log's rounding;
+    the K=64 group holds only the transferred combos, which that parse
+    cannot attribute."""
+    lines, records = [], []
     out = suite.run(tds.SUITE[:1], ks=(128, 64), device="cpu",
-                    full_grid=True, echo=lines.append)
+                    full_grid=True, echo=lines.append, records=records)
     arms = _arms("\n".join(lines))
     n128 = len(suite.ALPHAS) * len(suite.CONFIGS)
     assert len(arms) == n128 + 1 + suite.N_TRANSFER + 1
@@ -172,6 +178,13 @@ def test_suite_full_grid_and_extra_arms(tiny_suites):
     assert checks.count("pass") == 4 and checks.count("untested") == \
         len(arms) - 4
     assert out["matrices_per_k"] == {"128": 1, "64": 1}
+    key = (tds.SUITE[0][0], 128)
+    grid = check_autotune.runs_from_records(records)[key]
+    assert len(grid) == n128
+    log = tmp_path / "sweep.log"
+    log.write_text("\n".join(lines) + "\n")
+    assert check_autotune.parse_log(str(log))[key] == {
+        arm: float(f"{g:.0f}") for arm, g in grid.items()}
 
     lines = []
     pipe = suite.BsmrSddmm(tds.SUITE[0][1](), suite.SddmmConfig(

@@ -7,6 +7,8 @@ import os
 
 import pytest
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 from bsmr_sddmm_tpu_torch.ops import _build
 from bsmr_sddmm_tpu_torch.utils import compilecache
 

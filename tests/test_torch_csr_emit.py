@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu_torch as bt
 from bsmr_sddmm_tpu_torch.formats import random_mask
 from bsmr_sddmm_tpu_torch.ops import _build

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 from bsmr_sddmm_tpu_torch import BsmrSddmm, SddmmConfig
 from bsmr_sddmm_tpu_torch.formats import make_dense
 from bsmr_sddmm_tpu_torch.models import sparse_transformer as st

@@ -25,6 +25,8 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.parallel as jpar
 from bsmr_sddmm_tpu.formats import make_dense as j_make_dense
 from bsmr_sddmm_tpu.models import graph_transformer as j_gt

@@ -26,6 +26,8 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.ops.graph as j_graph
 import bsmr_sddmm_tpu.ops.graph_rphm as j_graph_rphm
 import bsmr_sddmm_tpu.ops.sddmm as jops

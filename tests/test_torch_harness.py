@@ -15,6 +15,8 @@ import sys
 import numpy as np
 import pytest
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.bench.analyze as janalyze
 import bsmr_sddmm_tpu.bench.plot as jplot
 import bsmr_sddmm_tpu.datatools as jdt

@@ -16,6 +16,8 @@ import sys
 import numpy as np
 import pytest
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.cache as jcache
 import bsmr_sddmm_tpu.datasets as jds
 import bsmr_sddmm_tpu.evaluate as jev

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu_torch as bt
 from bsmr_sddmm_tpu_torch import autotune, baselines
 from bsmr_sddmm_tpu_torch.datasets import uniform

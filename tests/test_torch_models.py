@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 from bsmr_sddmm_tpu.config import SddmmConfig as JConfig
 from bsmr_sddmm_tpu.formats import random_mask as j_random_mask
 from bsmr_sddmm_tpu.models import graph_transformer as j_gt

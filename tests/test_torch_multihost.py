@@ -18,6 +18,8 @@ import socket
 import subprocess
 import sys
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

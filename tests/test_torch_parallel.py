@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.datasets as jds
 import bsmr_sddmm_tpu.formats as jfm
 import bsmr_sddmm_tpu.ops.sddmm as jops

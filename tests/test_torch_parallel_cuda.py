@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 from bsmr_sddmm_tpu_torch.config import SddmmConfig
 from bsmr_sddmm_tpu_torch.datasets import banded
 from bsmr_sddmm_tpu_torch.formats import make_dense, random_mask

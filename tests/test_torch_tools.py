@@ -4,8 +4,9 @@ against the JAX package's ``scripts/`` on the CPU, on the same inputs.
 Each test imports the JAX script from ``scripts/`` (as
 tests/test_check_autotune.py does) and the port's module. The logs come
 from the port's own sweeps on the CPU: ``bench.suite.run(full_grid=True)``
-on banded_mesh_12k at K=128, and ``bench.replica_suite`` on the smallest
-manifest replica at K=32 and K=128 with subpack 0 only. Equal means equal:
+on banded_mesh_12k at K=128, recorded once in ``tests/data``, and
+``bench.replica_suite`` on the smallest manifest replica at K=32 and K=128
+with subpack 0 only, run live. Equal means equal:
 parses, rows, summaries and cache files; the refit table and quality, and
 the scaling model's JSON, to 1e-12.
 """
@@ -16,11 +17,14 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import sys
 
 import numpy as np
 import pytest
 import torch
+
+import _torch_threads  # noqa: F401  (this worker's thread budget)
 
 import bsmr_sddmm_tpu.autotune as jat
 import bsmr_sddmm_tpu.datasets as jds
@@ -37,6 +41,7 @@ from bsmr_sddmm_tpu_torch.tools import (audit_cost_model, check_autotune,
 from bsmr_sddmm_tpu_torch.tools import prewarm_reorder_cache
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "tests", "data")
 TOOLS = ("check_autotune", "audit_cost_model", "probe_tier_calibration",
          "fit_costs_from_audit", "probe_refine_pick", "profile_tiers",
          "prewarm_reorder_cache", "predict_scaling", "run_weak_scaling")
@@ -107,22 +112,40 @@ def test_parse_log_equal_on_jax_test_log(tmp_path):
 
 @pytest.fixture(scope="module")
 def sweep_log(tmp_path_factory):
-    """The lines bench.suite.run(full_grid=True) echoes for
-    banded_mesh_12k at K=128 on the CPU, in a log file, the arm records
+    """The lines bench.suite.run(full_grid=True) echoed for
+    banded_mesh_12k at K=128 on the CPU, in a log file, and the arm records
     of the same run beside it (``arms.json``, as ``--arms`` writes them),
-    and the reorder cache they left."""
+    copied from ``tests/data`` into a directory of their own that also
+    holds the tests' reorder cache (``cache``).
+
+    The sweep was recorded once on an idle host: the log prints GFLOPS as
+    integers, and a live sweep under the load of parallel test workers
+    prints a CPU arm's 1-3 GFLOPS as 0, which leaves check() no fraction.
+    Every arm of the recording reads at least 1 GFLOPS. Record both files
+    again together, from the root of the repo, with::
+
+        BSMR_CACHE_DIR=$(mktemp -d) python - <<'EOF'
+        import json
+        from bsmr_sddmm_tpu_torch import datasets
+        from bsmr_sddmm_tpu_torch.bench import suite
+        lines, records = [], []
+        out = suite.run([("banded_mesh_12k",
+                          dict(datasets.SUITE)["banded_mesh_12k"])],
+                        ks=(128,), device="cpu", full_grid=True,
+                        echo=lines.append, records=records)
+        assert "failed_cells" not in out
+        with open("tests/data/sweep.log", "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open("tests/data/arms.json", "w") as f:
+            json.dump(records, f, indent=1)
+        EOF
+    """
     root = tmp_path_factory.mktemp("sweep")
-    lines, records = [], []
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("BSMR_CACHE_DIR", str(root / "cache"))
-        gen = dict(tds.SUITE)["banded_mesh_12k"]
-        out = suite.run([("banded_mesh_12k", gen)], ks=(128,),
-                        device="cpu", full_grid=True, echo=lines.append,
-                        records=records)
-    assert "failed_cells" not in out
+    for name in ("sweep.log", "arms.json"):
+        shutil.copyfile(os.path.join(DATA, name), root / name)
     path = root / "sweep.log"
-    path.write_text("\n".join(lines) + "\n")
-    (root / "arms.json").write_text(json.dumps(records))
+    grid = check_autotune.parse_log(str(path))[("banded_mesh_12k", 128)]
+    assert min(grid.values()) >= 1
     return path
 
 
@@ -169,7 +192,8 @@ def test_records_agree_with_the_parse_of_a_clean_sweep(sweep_log, tmp_path,
     name the same 12 fp32 arms with the same GFLOPS, and one fp16 arm;
     main --arms picks what main on the log picks, and its best is the
     records' (the log's GFLOPS are rounded to integers, so on the CPU's
-    few GFLOPS its best may be a tie's first arm)."""
+    few GFLOPS its best may be a tie's first arm). Both files come from one
+    recorded run, so one recorded again without the other fails here."""
     monkeypatch.setenv("BSMR_CACHE_DIR", str(sweep_log.parent / "cache"))
     arms = sweep_log.parent / "arms.json"
     records = json.loads(arms.read_text())

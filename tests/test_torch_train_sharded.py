@@ -27,6 +27,8 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec
 
+import _torch_threads  # noqa: F401  (this worker's thread budget)
+
 import bsmr_sddmm_tpu.parallel as jpar
 from bsmr_sddmm_tpu.config import SddmmConfig as JConfig
 from bsmr_sddmm_tpu.formats import random_mask as j_random_mask
