@@ -147,6 +147,9 @@ def _load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bsmr_bsr_dense.restype = i
     lib.bsmr_bsr_dense.argtypes = [p] * 5 + [i] * 8 + [p]
+    lib.bsmr_bsr_dense_route.restype = i
+    lib.bsmr_bsr_dense_route.argtypes = [i] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong)]
     bind_subpack(lib)
     lib.bsmr_gathered_tile.restype = i
     lib.bsmr_gathered_tile.argtypes = [p] * 5 + [i] * 7 + [p]

@@ -50,18 +50,22 @@ keeps a fat step's column block resident in shared memory, split once into
 hi and lo, in the swizzled layout that warpgroup MMAs (``wgmma``) read
 directly (csrc/tile_wgmma.cuh); persistent thread blocks each walk a
 contiguous share of the (step, 64 rows) units, the A panels streaming past
-the block through a ``cp.async`` ring; at G = 1, and where the block does
-not fit, it walks K in chunks of 32 through a 2-stage ring with both
-operands split on the fly, as the gathered tiles and the packed tiles
-always do. The epilogue writes 16-byte streaming stores. PERF.md has every
-kernel's time on an H100 beside its bound. Left for later: producer warps
-and TMA loads for ``bsr_dense``, and ``wgmma`` for the streaming route.
+the block through a ``cp.async`` ring; where the block does not fit (K
+above 128 at bw 128, above 64 at bw 256) it keeps one 64-column slice of it
+instead (K up to 352), over (step, slice, 64 rows) units; at G = 1, and
+beyond the slice's reach, it walks K in chunks of 32 through a 2-stage
+ring with both operands split on the fly, as the gathered tiles and the
+packed tiles always do (:func:`bsr_route` names the route). The epilogue
+writes 16-byte streaming stores. PERF.md has every kernel's time on an H100
+beside its bound. Left for later: producer warps and TMA loads for
+``bsr_dense``.
 
 Each wrapper checks its inputs and then dispatches on the device of its
 tensors: CPU tensors go to the plain version, CUDA tensors launch the
 kernel on the current stream (no synchronisation) or raise. It counts its
 launches in ``<wrapper>.launches``, a plain int that only a kernel launch
-increments; :data:`WRAPPERS` names every counting wrapper, so the
+increments (``bsr_dense`` also by route, in ``bsr_dense.routes``);
+:data:`WRAPPERS` names every counting wrapper, so the
 counters' readers (``utils.profiling.counters``, ``parallel.worker``,
 ``chip_smoke.py``) need no list of their own. The plain versions'
 ``torch.bmm`` runs in full fp32 whatever the caller set for TF32
@@ -207,6 +211,50 @@ def three_pass_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 # Dense BSR tier
 # ---------------------------------------------------------------------------
 
+#: the constants of csrc/ that :func:`bsr_route` reads, under their names
+#: there (tests hold them to the sources)
+ROUTE_CONSTANTS = dict(kMaxSmem=232448, kSlabK=32, kPadK=4, kUnitRows=64,
+                       kSliceCols=64, kSliceChunk=32, kSliceUnits=2,
+                       kSliceStages=6, kChunkK=32, kStreamStages=2)
+#: :func:`bsr_dense`'s routes, in the order of csrc/bsr_dense.cu's Route
+BSR_ROUTES = ("resident", "sliced", "stream")
+
+
+def bsr_route(fat_group: int, panel_height: int, block_width: int,
+              k: int) -> tuple:
+    """``(route, smem_bytes)``: the route csrc/bsr_dense.cu's launch takes
+    for a fat group G, tile (ph x bw) and depth K, and the dynamic shared
+    memory it asks for. ``"resident"`` where G >= 2 and the whole column
+    block (hi and lo halves, K rounded up to 32) fits beside a ring of 2
+    A units (3 where they fit); ``"sliced"`` where G >= 2 and a 64-column
+    slice fits beside a ring of 2 stages of 32 K-columns of two units (as
+    many stages as fit, up to 6; K up to 352 at either width); ``"stream"``
+    otherwise. The formulas are the launch's (``resident_bytes``,
+    ``sliced_bytes``, ``stream_smem_bytes``)."""
+    c = ROUTE_CONSTANTS
+    k8, k32 = -(-k // 8) * 8, -(-k // c["kSlabK"]) * c["kSlabK"]
+
+    def resident(stages):
+        return 1024 + 4 * (2 * block_width * k32
+                           + stages * c["kUnitRows"] * (k8 + c["kPadK"]))
+
+    def sliced(stages):
+        return 1024 + 4 * (2 * c["kSliceCols"] * k32
+                           + stages * c["kSliceUnits"] * c["kUnitRows"]
+                           * (c["kSliceChunk"] + c["kPadK"]))
+
+    fits = c["kMaxSmem"]
+    if fat_group >= 2 and resident(2) <= fits:
+        return "resident", resident(3 if resident(3) <= fits else 2)
+    if fat_group >= 2 and sliced(2) <= fits:
+        stages = max(s for s in range(2, c["kSliceStages"] + 1)
+                     if s == 2 or sliced(s) <= fits)
+        return "sliced", sliced(stages)
+    rows = max(panel_height, 16) + block_width
+    chunks = min(-(-k // c["kChunkK"]), c["kStreamStages"])
+    return "stream", 4 * chunks * rows * (c["kChunkK"] + c["kPadK"])
+
+
 def bsr_dense_plain(A_panels: torch.Tensor, Bt: torch.Tensor,
                     tile_panel: torch.Tensor, step_cblock: torch.Tensor, *,
                     fat_group: int, block_width: int,
@@ -263,10 +311,13 @@ def bsr_dense(A_panels: torch.Tensor, Bt: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on("bsr_dense", err)
     bsr_dense.launches += 1
+    bsr_dense.routes[bsr_route(G, ph, block_width, K)[0]] += 1
     return out
 
 
 bsr_dense.launches = 0
+#: launches by route (:func:`bsr_route`), read as ``bsr_dense.route.<r>``
+bsr_dense.routes = dict.fromkeys(BSR_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

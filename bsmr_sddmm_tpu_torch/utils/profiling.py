@@ -22,8 +22,8 @@ bounded (:data:`CAPACITY` records of each kind), holds:
   ``perf_counter_ns``, which puts the device spans on the host clock;
 * counters (:func:`count`), and a snapshot (:func:`counters`) that also
   reads, where they live and under their own names, the kernel launch
-  counters (``<op>.launches``), the bodies' ``forks`` and
-  ``parallel.collectives.COUNTS``.
+  counters (``<op>.launches``, ``bsr_dense.route.<route>``), the bodies'
+  ``forks`` and ``parallel.collectives.COUNTS``.
 
 :func:`write` writes the store as ``spans.json``; :func:`trace` captures a
 ``torch.profiler`` trace around a block, with recording on, and writes
@@ -208,7 +208,8 @@ def spans() -> List[Span]:
 
 def counters() -> Dict[str, float]:
     """The last value of every recorded counter, and the counters that
-    live elsewhere, read now: ``<op>.launches`` of the hand kernels,
+    live elsewhere, read now: ``<op>.launches`` of the hand kernels
+    (``bsr_dense.route.<route>`` besides, its launches by route),
     ``body.forks`` (summed over the bodies alive) and
     ``collectives.<name>``."""
     out = {name: value for name, value, _, _ in list(_counts)}
@@ -216,6 +217,8 @@ def counters() -> Dict[str, float]:
     if dk is not None:
         for fn in dk.WRAPPERS:
             out[f"{fn.__name__}.launches"] = fn.launches
+            for route, n in getattr(fn, "routes", {}).items():
+                out[f"{fn.__name__}.route.{route}"] = n
     bodies = list(_bodies)
     if bodies:
         out["body.forks"] = sum(fn.forks for fn in bodies)

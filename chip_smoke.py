@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: nvcc compiles csrc/*.cu for sm_90a (into build/torch_kernels/,
    set by utils.compilecache.enable_compile_cache; a later run of the same
-   sources in the same checkout loads that library, and says so);
+   sources in the same checkout loads that library, and says so); a build
+   whose ptxas report says warpgroup MMAs were serialized fails;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of plans packed from the SUITE matrix banded_mesh_32k at
    K=128 and K=32 (fp32 and fp16 output), at three TF32 passes and at one
@@ -20,7 +21,9 @@ Run from the root of a checkout, on a machine with one CUDA card. Phases:
    time of one library call (torch.bmm in fp32 on operands gathered
    before the timed window) and the plain version's: bsr_dense and subpack
    on bsr plans (the plan's fat group G and G=1), bsr_dense alone at K=64
-   (resident route) and K=256 (streaming route) on the fat plan, dense_tile,
+   (resident route) and K=256 (sliced route) on the fat plan and at the
+   shape of pdb1HYS.k256.replay's dense tier (sliced, timed beside the
+   streaming route on the same operands), dense_tile,
    fused_gathered and subpack on col_mode="reorder" plans (alpha 0.3,
    delta 0.05), whose packed tier is the larger; csr_emit against its plain
    version (the cat and index_select it replaces) on the tiers and
@@ -421,31 +424,6 @@ def check_case(torch, dk, results, name, label, args, kw, keep):
     return failures
 
 
-def bsr_route(fat_group: int, block_width: int, k: int) -> str:
-    """The route csrc/bsr_dense.cu's launch() takes: the resident (wgmma)
-    route where G >= 2 and the column block with a 3- (else 2-) stage ring
-    fits kMaxSmem (resident_bytes), else the streaming (mma.sync) route;
-    the constants are read from the sources."""
-    src = HERE / PKG / "csrc"
-    c = {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                             (src / f).read_text()).group(1))
-         for name, f in (("kPadK", "tile_mma.cuh"),
-                         ("kMaxSmem", "tile_mma.cuh"),
-                         ("kSlabK", "tile_wgmma.cuh"),
-                         ("kUnitRows", "bsr_dense.cu"))}
-
-    def resident_bytes(stages):
-        k32 = -(-k // c["kSlabK"]) * c["kSlabK"]
-        stride = ((k + 7) & ~7) + c["kPadK"]
-        return 1024 + 4 * (2 * block_width * k32
-                           + stages * c["kUnitRows"] * stride)
-
-    stages = 3 if resident_bytes(3) <= c["kMaxSmem"] else 2
-    if fat_group >= 2 and resident_bytes(stages) <= c["kMaxSmem"]:
-        return "resident (wgmma)"
-    return "streaming (mma.sync)"
-
-
 def check_kernels(torch, bt, dev, csr, results):
     """Phase 3: bsr_dense and subpack at the shapes of bsr plans; bsr_dense
     alone at K=64 and K=256 (the depths the bench adds) on the fat plan."""
@@ -470,8 +448,9 @@ def check_kernels(torch, bt, dev, csr, results):
                 f"E={plan.res_arow.shape[0]} host {time.perf_counter()-t0:.2f}s")
             A_panels = A.index_select(0, dp.row_perm_padded).reshape(
                 plan.num_panels, plan.panel_height, k)
-            label = (f"G={plan.fat_group} K={k} "
-                     f"{bsr_route(plan.fat_group, plan.block_width, k)}")
+            route = dk.bsr_route(plan.fat_group, plan.panel_height,
+                                 plan.block_width, k)[0]
+            label = f"G={plan.fat_group} K={k} {route}"
             failures += check_case(
                 torch, dk, results, "bsr_dense", label,
                 (A_panels, Bt, dp.tile_panel, dp.tile_src),
@@ -483,6 +462,55 @@ def check_kernels(torch, bt, dev, csr, results):
                     (A_panels, Bt, dp.sp_colperm, dp.sp_panel, dp.sp_sub),
                     dict(subblock_width=plan.subblock_width), keep=k == 128)
             del A_panels, dp
+    return failures + check_cell_shape(torch, dk, dev, results)
+
+
+#: pdb1HYS.k256.replay's dense tier: tiles, fat group, panels, panel
+#: height, block width, K, columns (the benchmark's plan of the replica)
+CELL_SHAPE = dict(T=6144, G=16, panels=1139, ph=32, bw=128, k=256,
+                  cols=36417)
+
+
+def check_cell_shape(torch, dk, dev, results):
+    """bsr_dense at the shape of pdb1HYS.k256.replay's dense tier (the
+    sliced route) on random operands and ids, as check_case times it;
+    then the streaming route on the same operands (G = 1 and each step's
+    block id repeated for its tiles), which must agree, timed beside it at
+    both pass counts."""
+    from bsmr_sddmm_tpu_torch.utils.timing import time_cuda_graph
+    c = CELL_SHAPE
+    gen = torch.Generator(device="cpu").manual_seed(2201)
+    A_panels = (torch.rand((c["panels"], c["ph"], c["k"]), generator=gen)
+                * 2).to(dev)
+    Bt = (torch.rand((c["cols"], c["k"]), generator=gen) * 2).to(dev)
+    tile_panel = torch.randint(0, c["panels"], (c["T"],), generator=gen,
+                               dtype=torch.int32).to(dev)
+    step_cblock = torch.randint(0, -(-c["cols"] // c["bw"]),
+                                (c["T"] // c["G"],), generator=gen,
+                                dtype=torch.int32).to(dev)
+    route = dk.bsr_route(c["G"], c["ph"], c["bw"], c["k"])[0]
+    failures = check_case(
+        torch, dk, results, "bsr_dense",
+        f"cell shape T={c['T']} G={c['G']} K={c['k']} {route}",
+        (A_panels, Bt, tile_panel, step_cblock),
+        dict(fat_group=c["G"], block_width=c["bw"]), keep=False)
+    tile_cblock = step_cblock.repeat_interleave(c["G"])
+    for passes in (3, 1):
+        kw = dict(block_width=c["bw"], passes=passes)
+        fat_ms, fat = time_cuda_graph(lambda: dk.bsr_dense(
+            A_panels, Bt, tile_panel, step_cblock, fat_group=c["G"], **kw))
+        one_ms, one = time_cuda_graph(lambda: dk.bsr_dense(
+            A_panels, Bt, tile_panel, tile_cblock, fat_group=1, **kw))
+        torch.cuda.synchronize()
+        ok = compare(torch, fat, one, "float32")[2]
+        say(f"[kernels]   bsr_dense cell shape {passes} pass"
+            f"{'es' if passes > 1 else ''}: {route} {fat_ms:.4f} ms, "
+            f"{dk.bsr_route(1, c['ph'], c['bw'], c['k'])[0]} route on the "
+            f"same operands {one_ms:.4f} ms ({one_ms / fat_ms:.2f}x); "
+            f"{'agree' if ok else 'DISAGREE'}")
+        if not ok:
+            failures.append(f"bsr_dense cell shape passes={passes}: the "
+                            f"routes disagree")
     return failures
 
 
@@ -673,6 +701,7 @@ def zero_launches():
     from bsmr_sddmm_tpu_torch.ops import dense_kernels as dk
     for kern in dk.WRAPPERS:
         kern.launches = 0
+    dk.bsr_dense.routes = dict.fromkeys(dk.BSR_ROUTES, 0)
 
 
 def read_launches(results):
@@ -741,7 +770,8 @@ def main_path(bt, dev, suite, results, picks):
         zero_launches()
         pipe.run(A, B)
         per_call = {kern.__name__: kern.launches for kern in dk.WRAPPERS}
-        say(f"[main]   launches per call: {per_call}")
+        say(f"[main]   launches per call: {per_call}; bsr_dense by route "
+            f"{dk.bsr_dense.routes}")
         for kname, n in per_call.items():
             rec = results[kname]
             rec["launches_per_call"] = max(rec["launches_per_call"], n)
@@ -1941,8 +1971,8 @@ def batched_phase(torch, bt, dev, csr, results):
     return failures
 
 
-# K=64 left out since [arms] runs its full grid: every route is covered
-# (resident at K=128, streaming at K=256) and the script stays near 10 min
+# K=64 left out since [arms] runs its full grid: both fat routes are covered
+# (resident at K=128, sliced at K=256) and the script stays near 10 min
 BENCH_KS = (128, 256)
 BENCH_SCHEMA = ("metric", "value", "unit", "vs_baseline", "per_k_geomean",
                 "per_k_vs_baseline", "per_k_geomean_fp32out",
@@ -1978,8 +2008,8 @@ def bench_phase(torch, bt, dev, suite, results):
         if arm:
             name, k, _, G, check = arm.groups()
             checks.append(check)
-            routes[int(k)].append(f"{name} G={G} "
-                                  f"{bsr_route(int(G), 128, int(k))}")
+            routes[int(k)].append(
+                f"{name} G={G} {dk.bsr_route(int(G), 32, 128, int(k))[0]}")
 
     zero_launches()
     out = bench_suite.run([(n, lambda n=n: suite[n]) for n in names],
@@ -2004,7 +2034,8 @@ def bench_phase(torch, bt, dev, suite, results):
             f"{routes[k]}")
     if per_k[256]["bsr_dense"] <= 0:
         failures.append("bench: bsr_dense never launched at K=256")
-    say(f"[bench] launches over the sweep {launches}")
+    say(f"[bench] launches over the sweep {launches}; bsr_dense by route "
+        f"{dk.bsr_dense.routes}")
 
     # runner -> analyze: the CLI and the gather_dot baseline, each in a
     # process of its own on the card, read back by the analyzer
@@ -2695,6 +2726,12 @@ def main() -> int:
         f"{info['seconds']:.1f} s (load {time.perf_counter() - t0:.1f} s; "
         f"kernel build cache {cache_dir}: {how})")
     report = info.get("report", "")
+    # ptxas serializes a kernel's warpgroup MMAs where it cannot prove them
+    # safe to overlap (C7513, C7518): the sliced route ran 1.2x slower so
+    serialized = re.findall(r"wgmma\.mma_async instructions are serialized "
+                            r"[^\n]*function '(\w+)'", report)
+    if serialized:
+        fail(f"ptxas serialized the warpgroup MMAs of {serialized}")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
     if regs:

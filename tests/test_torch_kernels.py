@@ -486,6 +486,88 @@ def test_tile_work_one_pass_is_a_third_of_the_operations(row):
     assert one["bound_ms"] == max(one["bytes_ms"], one["ops_ms"])
 
 
+# ---------------------------------------------------------------------------
+# bsr_dense's route rule (csrc/bsr_dense.cu bsr_route, dense_kernels
+# bsr_route): resident, sliced or streaming, from (G, ph, bw, K) alone
+# ---------------------------------------------------------------------------
+
+#: (G, ph, bw, K) -> route; pdb1HYS.k128 and .k256's dense tiers are the
+#: first two
+ROUTES = {(16, 32, 128, 128): "resident", (16, 32, 128, 256): "sliced",
+          (1, 32, 128, 256): "stream", (1, 32, 128, 128): "stream",
+          (16, 32, 128, 352): "sliced", (16, 32, 128, 353): "stream",
+          (2, 32, 128, 129): "sliced", (16, 32, 256, 64): "resident",
+          (16, 32, 256, 65): "sliced", (16, 32, 256, 128): "sliced",
+          (8, 64, 256, 288): "sliced", (4, 8, 256, 360): "stream",
+          (32, 16, 128, 32): "resident", (1, 8, 256, 64): "stream"}
+
+
+@pytest.mark.parametrize("key", sorted(ROUTES))
+def test_bsr_route(key):
+    route, smem = dk.bsr_route(*key)
+    assert route == ROUTES[key]
+    assert 0 < smem <= dk.ROUTE_CONSTANTS["kMaxSmem"]
+
+
+def test_bsr_route_constants_are_the_sources():
+    """Every constant the rule reads is the one of that name in csrc/."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(dk.__file__).resolve().parent.parent / "csrc"
+    text = "".join(p.read_text() for p in sorted(csrc.glob("*.cu*")))
+    for name, value in dk.ROUTE_CONSTANTS.items():
+        found = re.findall(rf"constexpr int {name} = (\d+);", text)
+        assert found == [str(value)], name
+
+
+def test_bsr_route_bytes_are_the_launch_formulas():
+    """The shared memory of each route as csrc/bsr_dense.cu's note gives
+    it, and the sliced route's reach: K up to 352 at either width, with 5
+    ring stages at K = 256 and 6 up to K = 224."""
+    ring = 4 * 2 * 64 * (32 + 4)          # a sliced stage: two units
+    # resident: 2 * bw * K32 * 4 + stages * 64 * (K8 + 4) * 4 + 1024
+    assert dk.bsr_route(16, 32, 128, 128)[1] == \
+        1024 + 4 * (2 * 128 * 128 + 2 * 64 * 132) == 199680   # 195 KB
+    assert dk.bsr_route(16, 32, 128, 32)[1] == \
+        1024 + 4 * (2 * 128 * 32 + 3 * 64 * 36) == 61440     # 60 KB
+    # sliced: 2 * 64 * K32 * 4 + stages * ring + 1024
+    assert dk.bsr_route(16, 32, 128, 256)[1] == \
+        1024 + 4 * 2 * 64 * 256 + 5 * ring == 224256         # 219 KB
+    assert dk.bsr_route(16, 32, 128, 224)[1] == \
+        1024 + 4 * 2 * 64 * 224 + 6 * ring
+    assert dk.bsr_route(16, 32, 128, 352)[1] == \
+        1024 + 4 * 2 * 64 * 352 + 2 * ring
+    # streaming: stages * (max(ph, 16) + bw) * (32 + 4) * 4
+    assert dk.bsr_route(1, 32, 128, 256)[1] == \
+        2 * (32 + 128) * 36 * 4 == 46080                      # 45 KB
+    assert dk.bsr_route(1, 8, 128, 20)[1] == (16 + 128) * 36 * 4
+    for bw in (128, 256):
+        sliced = [k for k in range(1, 400)
+                  if dk.bsr_route(16, 32, bw, k)[0] == "sliced"]
+        assert sliced == list(range(129 if bw == 128 else 65, 353))
+        assert all(dk.bsr_route(2, 32, bw, k)[0] != "resident"
+                   for k in sliced)
+        assert all(dk.bsr_route(1, 32, bw, k)[0] == "stream"
+                   for k in range(1, 400))
+
+
+def test_counters_report_bsr_dense_launches_by_route(monkeypatch):
+    from bsmr_sddmm_tpu_torch.utils import profiling
+    monkeypatch.setattr(dk.bsr_dense, "routes",
+                        dict(resident=2, sliced=5, stream=0))
+    got = profiling.counters()
+    assert {r: got[f"bsr_dense.route.{r}"] for r in dk.BSR_ROUTES} == dict(
+        resident=2, sliced=5, stream=0)
+
+
+def test_plain_bsr_dense_counts_no_route():
+    """A CPU call runs the plain version: no launch, no route counted."""
+    args = tensors(*bsr_inputs(k=256, T=8, G=2))
+    before = (dk.bsr_dense.launches, dict(dk.bsr_dense.routes))
+    dk.bsr_dense(*args, fat_group=2, block_width=BW)
+    assert (dk.bsr_dense.launches, dk.bsr_dense.routes) == before
+
+
 @pytest.mark.parametrize("signed", [False, True])
 def test_tf32_split_restores_the_value(signed):
     """hi and lo are TF32 values (13 low bits clear), hi is x rounded to
@@ -687,7 +769,8 @@ def assert_within_products(got, plain, args, kw):
 def test_bsr_dense_kernel_edges(cuda, k, G):
     """Mixed signs; K with and without 16-byte rows and a ragged last
     chunk; N not a multiple of bw; fat steps worked two tiles at a time,
-    with a lone last tile (G = 3); K = 256 does not stay resident."""
+    with a lone last tile (G = 3); K = 256 keeps a 64-column slice of the
+    block resident (the sliced route), at G = 1 it streams."""
     args = tensors(*bsr_inputs(num_panels=50, ph=32, k=k, n_cols=1000,
                                T=3 * G, G=G, signed=True), device=cuda)
     kw = dict(fat_group=G, block_width=BW, out_dtype=torch.float32)
@@ -716,14 +799,129 @@ def test_bsr_dense_kernel_shares_of_many_units(cuda, k, G):
 def test_bsr_dense_kernel_every_geometry(cuda, k, G, ph, bw, out_dtype):
     """(64, 4) and (32, 3) keep the column block resident at both block
     widths (at 256 on the wider warpgroup MMA), the second with a ragged
-    last unit; (128, 4) does so at width 128 and streams at 256; G = 1
-    streams."""
+    last unit; (128, 4) does so at width 128 and keeps 64-column slices
+    resident at 256 (the sliced route); G = 1 streams."""
     args = tensors(*bsr_inputs(num_panels=20, ph=ph, k=k, n_cols=1000,
                                T=24, G=G, bw=bw, signed=True), device=cuda)
     kw = dict(fat_group=G, block_width=bw, out_dtype=out_dtype)
     got = dk.bsr_dense(*args, **kw)
     assert got.shape == (24, ph, bw)
     assert_within_products(got, dk.bsr_dense_plain, args, kw)
+
+
+#: depths of the sliced route: 258 has rows of no 16-byte multiple, 351 is
+#: just under the route's limit (352) and ragged too
+SLICED_KS = [136, 160, 192, 256, 258, 351]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("bw", [128, 256])
+@pytest.mark.parametrize("G", [2, 3, 5, 16])
+@pytest.mark.parametrize("k", SLICED_KS)
+def test_bsr_dense_sliced_route(cuda, k, G, bw, passes):
+    """The sliced route at both widths (2 and 4 slices a step), fp32 and
+    fp16, one pass and three: G = 3 leaves the step's second unit one
+    tile, G = 5 a third unit alone in its pair (the other warpgroup's
+    sums are not stored)."""
+    assert dk.bsr_route(G, 32, bw, k)[0] == "sliced"
+    args = tensors(*bsr_inputs(num_panels=50, ph=32, k=k, n_cols=1000,
+                               T=3 * G, G=G, bw=bw, signed=True), device=cuda)
+    for out_dtype in (torch.float32, torch.float16):
+        kw = dict(fat_group=G, block_width=bw, out_dtype=out_dtype,
+                  passes=passes)
+        before = dict(dk.bsr_dense.routes)
+        got = dk.bsr_dense(*args, **kw)
+        assert got.shape == (3 * G, 32, bw)
+        assert_within_products(got, dk.bsr_dense_plain, args, kw)
+        assert dk.bsr_dense.routes == dict(before,
+                                           sliced=before["sliced"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ph,bw", sorted(dk.GEOMETRIES))
+@pytest.mark.parametrize("G", [3, 4])
+def test_bsr_dense_sliced_route_every_geometry(cuda, G, ph, bw):
+    """Every tile height on the sliced route (K = 200, rows rounded up to
+    a slab of 32): 4, 2 or 1 tiles a unit, G = 3 ragged in each."""
+    args = tensors(*bsr_inputs(num_panels=20, ph=ph, k=200, n_cols=1000,
+                               T=8 * G, G=G, bw=bw, signed=True), device=cuda)
+    for out_dtype in (torch.float32, torch.float16):
+        kw = dict(fat_group=G, block_width=bw, out_dtype=out_dtype)
+        got = dk.bsr_dense(*args, **kw)
+        assert got.shape == (8 * G, ph, bw)
+        assert_within_products(got, dk.bsr_dense_plain, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+def test_bsr_dense_sliced_route_at_the_cells_shape(cuda, passes):
+    """pdb1HYS.k256.replay's dense tier: T = 6 144 tiles of 32 x 128, G =
+    16, K = 256, 384 steps over 1 139 panels: more items than thread
+    blocks, so each block crosses slices and steps; the same bits launch
+    after launch, and the streaming route (G = 1) agrees."""
+    args = tensors(*bsr_inputs(num_panels=1139, ph=32, k=256,
+                               n_cols=36417, T=6144, G=16, signed=True),
+                   device=cuda)
+    kw = dict(fat_group=16, block_width=BW, passes=passes)
+    got = dk.bsr_dense(*args, **kw)
+    assert_within_products(got, dk.bsr_dense_plain, args,
+                           dict(kw, out_dtype=torch.float32))
+    for _ in range(2):
+        assert torch.equal(dk.bsr_dense(*args, **kw), got)
+    A, Bt, tp, sc = args
+    streamed = dk.bsr_dense(A, Bt, tp, sc.repeat_interleave(16),
+                            fat_group=1, block_width=BW, passes=passes)
+    assert_within_products(streamed, dk.bsr_dense_plain, args,
+                           dict(kw, out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_bsr_route_is_the_librarys(cuda):
+    """dense_kernels.bsr_route against the library's own rule
+    (bsmr_bsr_dense_route, the function its launch reads): the same route
+    and the same shared memory at every tile geometry, G and K."""
+    import ctypes
+    from bsmr_sddmm_tpu_torch.ops._build import load_library
+    lib = load_library()
+    smem = ctypes.c_longlong()
+    for ph, bw in sorted(dk.GEOMETRIES):
+        for G in (1, 2, 16):
+            for k in list(range(1, 420, 3)) + [64, 65, 128, 129, 352, 353]:
+                r = lib.bsmr_bsr_dense_route(G, ph, bw, k,
+                                             ctypes.byref(smem))
+                assert (dk.BSR_ROUTES[r], smem.value) == \
+                    dk.bsr_route(G, ph, bw, k), (G, ph, bw, k)
+    assert lib.bsmr_bsr_dense_route(2, 24, 128, 64, ctypes.byref(smem)) == -1
+
+
+@pytest.mark.cuda
+def test_bsr_dense_launches_the_kernel_of_its_route(cuda):
+    """The device trace of three launches, one a route, shows each route's
+    kernel, in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cases = [(16, 128, "bsr_resident_kernel"), (16, 256, "bsr_sliced_kernel"),
+             (1, 256, "bsr_stream_kernel")]
+    calls = []
+    for G, k, _ in cases:
+        args = tensors(*bsr_inputs(num_panels=20, ph=32, k=k, n_cols=1000,
+                                   T=4 * G, G=G), device=cuda)
+        calls.append(lambda args=args, G=G: dk.bsr_dense(
+            *args, fat_group=G, block_width=BW))
+        calls[-1]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and "bsr_" in e.name), key=lambda e: e.time_range.start)]
+    assert len(names) == 3, names
+    for name, (_, _, kernel) in zip(names, cases):
+        assert kernel in name, names
 
 
 @pytest.mark.cuda
